@@ -1,0 +1,156 @@
+"""Profiling of the port (counterpart of ``tbist_tpu.utils.prof``).
+
+``trace`` wraps ``torch.profiler`` around a block (CPU and CUDA activity,
+optionally written as a Chrome trace). ``device_breakdown`` sums a trace's
+GPU kernel time by kind and measures how much of the traced window the
+device was busy.
+
+Run as a script on a machine with a CUDA card to profile the main path,
+Gatys L-BFGS on boat.jpg x starry_night.jpg::
+
+    python -m tbist_tpu_torch.utils.prof --size 512 --steps 30
+
+It prints one JSON line: per-step device time by kind and of the top
+kernels, CUDA calls per step that can block the host, the device's busy
+share of the profiled window (the profiler's own host cost included), and
+iters/s of an unprofiled run of the same length.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import subprocess
+import time
+from typing import Dict, Optional
+
+import torch
+
+# kernel-name substrings -> kind, first match wins
+_KINDS = (
+    ("K1 gram (gram.cu)", ("gram_partial_kernel", "gram_reduce_kernel", "gram_bwd_kernel")),
+    ("K3 relu-pool bwd (pool_bwd.cu)", ("pool_bwd_kernel",)),
+    # cuDNN's FFT convolutions run complex (float2) GEMVs; its layout
+    # transposes (nchwToNhwc, nhwcToNchw) belong to the convolutions too
+    ("convolution (cuDNN)", ("conv", "cudnn", "implicit", "fprop", "dgrad", "winograd",
+                             "fft", "float2", "nchwToNhwc", "nhwcToNchw")),
+    ("matmul (cuBLAS)", ("gemm", "gemv", "dot_kernel", "cutlass")),
+    ("linear solve", ("getrf", "getrs", "trsm", "lu_", "laswp", "magma", "solve")),
+    ("reduction", ("reduce",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "where", "clamp")),
+)
+# CUDA runtime calls that make the host wait for the device
+_BLOCKING = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+             "cudaMemcpy", "cudaMemcpyAsync")
+
+
+def kind_of(kernel_name: str) -> str:
+    for kind, keys in _KINDS:
+        if any(k in kernel_name for k in keys):
+            return kind
+    return "other"
+
+
+@contextlib.contextmanager
+def trace(out_path: Optional[str] = None):
+    """Profile CPU and CUDA activity in the block; yields the profiler.
+    ``out_path``, when given, receives a Chrome trace."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as p:
+        yield p
+    if out_path:
+        os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+        p.export_chrome_trace(out_path)
+
+
+def device_breakdown(p) -> Dict:
+    """GPU kernel time by kind (ms), and the busy share of the window from
+    the first kernel's start to the last kernel's end."""
+    kernels = [e for e in p.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return {"device_events": 0}
+    by_kind: Dict[str, float] = {}
+    by_name: Dict[str, float] = {}
+    spans = []
+    for e in kernels:
+        us = e.time_range.elapsed_us()
+        by_kind[kind_of(e.name)] = by_kind.get(kind_of(e.name), 0.0) + us
+        by_name[e.name[:90]] = by_name.get(e.name[:90], 0.0) + us
+        spans.append((e.time_range.start, e.time_range.end))
+    spans.sort()
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    window = spans[-1][1] - spans[0][0]
+    blocking = {}
+    for e in p.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name in _BLOCKING:
+            blocking[e.name] = blocking.get(e.name, 0) + 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {
+        "device_events": len(kernels),
+        "kernel_ms_by_kind": {k: v / 1e3 for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1])},
+        "top_kernels_ms": {k: v / 1e3 for k, v in top},
+        "window_ms": window / 1e3,
+        "busy_share": busy / window if window else None,
+        "blocking_calls": blocking,
+    }
+
+
+def _main() -> None:
+    from tbist_tpu_torch.optimize import gatys
+    from tbist_tpu_torch.utils.config import GatysConfig
+    from tbist_tpu_torch.utils.imageio import load_image, to_device
+    from tbist_tpu_torch.weights import vgg as vgg_weights
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--size", type=int, default=512)
+    ap.add_argument("--steps", type=int, default=30)
+    ap.add_argument("--trace", help="write a Chrome trace here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("prof: needs a CUDA device")
+
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    imgs = [to_device(load_image(os.path.join(root, p)), bucket=32, max_side=args.size)
+            for p in ("data/content_imgs/boat.jpg", "data/style_imgs/starry_night.jpg")]
+    params = vgg_weights.get_params()
+    cfg = GatysConfig(num_steps=args.steps)
+    gatys.stylize(imgs[0], imgs[1:], GatysConfig(num_steps=3), params)  # warm-up
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    _, hist = gatys.stylize(imgs[0], imgs[1:], cfg, params)
+    hist.cpu()
+    plain_s = time.perf_counter() - t0
+    with trace(args.trace) as p:
+        _, hist = gatys.stylize(imgs[0], imgs[1:], cfg, params)
+        hist.cpu()
+    out = device_breakdown(p)
+    per_step = {
+        key: {k: v / args.steps for k, v in out.pop(key, {}).items()}
+        for key in ("kernel_ms_by_kind", "top_kernels_ms", "blocking_calls")
+    }
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    print(json.dumps({
+        "profile": "gatys lbfgs stylize", "size": list(imgs[0].shape[1:3]),
+        "steps": args.steps, "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+        "iters_per_sec_unprofiled": args.steps / plain_s,
+        "per_step": per_step, **out,
+    }))
+
+
+if __name__ == "__main__":
+    _main()
