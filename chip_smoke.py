@@ -9,15 +9,22 @@ Phases, each fatal:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every kernel of ``tbist_tpu_torch/csrc`` with ``nvcc``, in parallel;
-3. kernels: each kernel's wrapper at the main path's shapes (512px), f32 and
-   bf16, held against its plain PyTorch version on the same inputs and
-   timed with CUDA events beside its bound and a library yardstick;
+3. kernels: each kernel's wrapper at its path's shapes (K1-K3 at 512px, f32
+   and bf16; K4 at the 1024² SAM encoder for one and four images, and at a
+   ragged 24x40 grid), held against its plain PyTorch version on the same
+   inputs and timed with CUDA events beside its bound and a library yardstick;
 4. agreement: ``stylize`` on the card against the plain CPU path (8 steps,
-   64px, torch-seeded weights), plus an 8-step bf16 run;
-5. main path: ``tbist_tpu_torch.cli.main`` — boat.jpg x starry_night.jpg,
-   ``--style-transfer``, 400 L-BFGS steps at 512px, full VGG-19 width —
-   with every launch counter zeroed just before and read just after.
+   64px, torch-seeded weights), plus an 8-step bf16 run; SAM ViT-B (seeded,
+   full width, adapted to a 256 input) on the card against the CPU;
+5. Gatys path: ``tbist_tpu_torch.cli.main`` — boat.jpg x starry_night.jpg,
+   ``--style-transfer``, 400 L-BFGS steps at 512px, full VGG-19 width;
+6. SAM path: ``models.sam.predict_boxes`` at full ViT-B width and 1024² on
+   seeded weights (a 480x640 image, one box), then the batch lane
+   (``encode_uint8_batch`` + ``masks_from_embedding_batch``, 4 frames);
+7. mask ops: ``ops.masks.composite_by_mask`` on the card against the CPU,
+   with the SAM path's mask.
 
+Every launch counter is zeroed just before each path and read just after.
 It prints one JSON line per kernel, shape and dtype, then the card's
 ``nvidia-smi`` line, a ``{"kernels": [...]}`` summary, and last the
 ``{"ok": true, "device": ...}`` line. Without CUDA, or outside a checkout,
@@ -46,6 +53,13 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 L2_BYTES = 50e6  # the H100's L2 cache
 ITERS = 50
+# K4 shapes (N = B·heads, h, w, d): one 1024² image (12 heads, T = 4096), the
+# batch lane's four, and a ragged grid (T = 960 is not a multiple of 64)
+SAM_ATTN_SHAPES = ((12, 64, 64, 64), (48, 64, 64, 64), (3, 24, 40, 64))
+SAM_ITERS = 10
+# the JAX package's SAM benchmark input (benchmarks/suite.py:56-64)
+SAM_IMAGE_HW = (480, 640)
+SAM_BOX = [100.0, 100.0, 400.0, 380.0]
 SPIN_HZ = 2e9  # cycles per second of torch.cuda._sleep: at most the H100's 1.98 GHz SM clock
 
 
@@ -116,9 +130,9 @@ def pool_shapes(size: int):
 def check_kernels(device, size: int):
     """Phase 3: every kernel against its plain version at the main path's
     shapes, f32 and bf16. Returns per-step f32 sums per kernel."""
-    from tbist_tpu_torch.optimize import gatys
+    from tbist_tpu_torch.utils.precision import full_f32
 
-    with gatys.full_f32():  # the plain versions in full f32
+    with full_f32():  # the plain versions in full f32
         return _check_kernels(device, size)
 
 
@@ -209,6 +223,61 @@ def _check_kernels(device, size: int):
     return summary
 
 
+def check_sam_attn(device):
+    """Phase 3, K4: the kernel against its plain version at the SAM shapes.
+    Returns the line of the first shape (one launch of the 1024² encoder)."""
+    from tbist_tpu_torch.utils.precision import full_f32
+
+    with full_f32():
+        return _check_sam_attn(device)
+
+
+def _check_sam_attn(device):
+    import torch
+    import torch.nn.functional as F
+
+    from tbist_tpu_torch.kernels import sam_attn
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    lines = []
+    for n, h, w, d in SAM_ATTN_SHAPES:
+        t = h * w
+        q = torch.randn((n, t, d), generator=gen, device=device) * d ** -0.5  # pre-scaled
+        k, v = (torch.randn((n, t, d), generator=gen, device=device) for _ in range(2))
+        bh = torch.randn((n, t, h), generator=gen, device=device)
+        bw = torch.randn((n, t, w), generator=gen, device=device)
+        args = (q, k, v, bh, bw)
+        got = sam_attn.attention_with_rel_bias(*args, h, w)
+        want = sam_attn.attention_with_rel_bias_plain(*args, h, w)
+        # the online softmax sums the T keys in another order
+        rtol, atol = 1e-4, 1e-5 * float(want.abs().max())
+        err = (got - want).abs()
+        ok, max_err = bool(torch.all(err <= atol + rtol * want.abs())), float(err.max())
+        del got, want, err
+        ms = time_ms(lambda *a: sam_attn.attention_with_rel_bias(*a, h, w), args, SAM_ITERS)
+        plain_ms = time_ms(lambda *a: sam_attn.attention_with_rel_bias_plain(*a, h, w), args,
+                           SAM_ITERS)
+        # the yardstick gets the (N, T, T) bias built beforehand, outside the timing
+        bias = (bh.reshape(n, t, h, 1) + bw.reshape(n, t, 1, w)).reshape(n, t, t)
+        lib_ms = time_ms(lambda q, k, v, b: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=b, scale=1.0), (q, k, v, bias), SAM_ITERS)
+        del bias
+        # each input read once and the output written once; the two products
+        b_ms, b_by = bound_ms(4 * (4 * n * t * d + n * t * (h + w)), 4 * n * t * t * d,
+                              "float32")
+        line = {"kernel": "sam_attn", "shape": {"N": n, "T": t, "d": d, "h": h, "w": w},
+                "dtype": "float32", "max_abs_err": max_err, "rtol": rtol,
+                "atol": atol, "agree": ok, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": b_ms, "bound_by": b_by}
+        log(json.dumps(line))
+        if not ok:
+            raise AssertionError(f"sam_attn {(n, h, w, d)}: kernel disagrees with plain version")
+        lines.append(line)
+        del q, k, v, bh, bw, args
+        torch.cuda.empty_cache()
+    return lines[0]
+
+
 def check_conv_layout(device, size: int) -> bool:
     """Whether cuDNN returns channels-last output for channels-last input at
     the conv shapes of the style layers (then the NHWC view needs no copy)."""
@@ -268,6 +337,40 @@ def check_agreement(device) -> None:
         raise AssertionError("bf16 run produced non-finite values")
 
 
+def check_sam_agreement(device) -> None:
+    """Phase 4, SAM: full-width ViT-B (seeded) adapted to a 256 input (a 16x16
+    grid, so K4 runs at T = 256), on the card against the CPU: a seeded
+    200x300 image, two boxes."""
+    import numpy as np
+    import torch
+
+    from tbist_tpu_torch import kernels
+    from tbist_tpu_torch.models import sam
+    from tbist_tpu_torch.weights import sam as wsam
+
+    params, cfg = sam.params_for_size(
+        wsam.init_params(torch.Generator().manual_seed(0), sam.BASE), sam.BASE, 256)
+    img = (np.random.default_rng(1).random((200, 300, 3)) * 255).astype(np.uint8)
+    boxes = np.asarray([[20, 30, 180, 170], [150, 10, 290, 190]], np.float32)
+    runs = {}
+    for dev in (device, torch.device("cpu")):
+        p = wsam.to_device(params, dev)
+        kernels.reset_launch_counts()
+        emb, scale, nh, nw = sam.encode_uint8(p, cfg, img)
+        masks = sam.masks_from_embedding(p, cfg, emb, scale, nh, nw, 200, 300, boxes)
+        runs[dev.type] = (emb.cpu(), masks, kernels.launch_counts()["sam_attn"])
+    (e_gpu, m_gpu, n_gpu), (e_cpu, m_cpu, n_cpu) = runs[device.type], runs["cpu"]
+    emb_err = float((e_gpu - e_cpu).abs().max() / e_cpu.abs().max())
+    agree = float(np.mean(m_gpu == m_cpu))
+    log(json.dumps({"agreement": "SAM card vs cpu, ViT-B at 256, 200x300, 2 boxes",
+                    "embedding_max_rel_err": emb_err, "mask_pixels_agree": agree,
+                    "mask_share_true": float(m_gpu.mean()), "sam_attn_launches": n_gpu}))
+    if n_gpu != len(sam.BASE.global_layers) or n_cpu != 0:
+        raise AssertionError(f"sam_attn launches card {n_gpu}, cpu {n_cpu}")
+    if not (emb_err <= 1e-3 and agree >= 0.999 and m_gpu.shape == (2, 200, 300)):
+        raise AssertionError("SAM card and CPU runs disagree")
+
+
 def run_main_path(size: int, steps: int):
     """Phase 5: the CLI at full width; returns (launch counts, metrics, peak bytes)."""
     import numpy as np
@@ -306,10 +409,133 @@ def run_main_path(size: int, steps: int):
         raise AssertionError("loss history is not finite and decreasing")
     n_style = len(STYLE_LAYERS)
     want = {"gram_fwd": n_style * steps + n_style, "gram_bwd": n_style * steps,
-            "relu_pool_bwd": len(POOL_CHANNELS) * steps, "pool_bwd": 0}
+            "relu_pool_bwd": len(POOL_CHANNELS) * steps, "pool_bwd": 0, "sam_attn": 0}
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     return counts, metrics, peak
+
+
+def _expect_launches(counts, sam_attn: int) -> None:
+    want = {name: 0 for name in counts}
+    want["sam_attn"] = sam_attn
+    if counts != want:
+        raise AssertionError(f"launch counts {counts}, expected {want}")
+
+
+def run_sam_path(device, smi: str):
+    """Phase 6: SAM ViT-B at full width and 1024², seeded weights. Returns
+    (sam_attn launches, metrics, the single path's mask)."""
+    import numpy as np
+    import torch
+
+    from tbist_tpu_torch import kernels
+    from tbist_tpu_torch.models import sam
+    from tbist_tpu_torch.weights import sam as wsam
+
+    cfg = sam.BASE
+    per_call = len(cfg.global_layers)
+    params = wsam.init_params(torch.Generator().manual_seed(0), cfg, device=device)
+    log("SAM weights: seeded (init_params, torch.Generator seed 0); no checkpoint in the repo")
+    h, w = SAM_IMAGE_HW
+    img = (np.random.default_rng(0).random((h, w, 3)) * 255).astype(np.uint8)
+    boxes = np.asarray([SAM_BOX], np.float32)
+
+    # single image: 2 warm-up calls, then 10 timed by the host clock, each
+    # ending in the masks' read-back
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    for _ in range(2):
+        sam.predict_boxes(params, cfg, img, boxes)
+    times = []
+    for _ in range(SAM_ITERS):
+        t0 = time.perf_counter()
+        mask = sam.predict_boxes(params, cfg, img, boxes)
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = kernels.launch_counts()
+    calls = 2 + SAM_ITERS
+    _expect_launches(counts, per_call * calls)
+    launches = counts["sam_attn"]
+    peak = torch.cuda.max_memory_allocated()
+    if mask.shape != (1, h, w) or mask.dtype != np.bool_:
+        raise AssertionError(f"mask {mask.shape} {mask.dtype}, expected (1, {h}, {w}) bool")
+
+    # the encoder alone, by CUDA events
+    x, *_ = sam._preprocess(torch.from_numpy(img).to(device)[None], cfg)
+    enc_ms = []
+    for _ in range(SAM_ITERS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        sam.encode_image(params, cfg, x)
+        end.record()
+        end.synchronize()
+        enc_ms.append(start.elapsed_time(end))
+
+    # the batch lane: 4 frames (the first is the single path's image) with
+    # 1-3 boxes each, padded to K = 4
+    rng = np.random.default_rng(1)
+    frames = np.stack([img] + [(rng.random((h, w, 3)) * 255).astype(np.uint8)
+                               for _ in range(3)])
+    bx = np.zeros((4, 4, 4), np.float32)
+    valid = np.zeros((4, 4), bool)
+    for i, n_boxes in enumerate((1, 3, 2, 1)):
+        for j in range(n_boxes):
+            bx[i, j] = SAM_BOX if (i, j) == (0, 0) else [40 + 90 * j, 30 + 60 * i,
+                                                         300 + 90 * j, 260 + 50 * i]
+            valid[i, j] = True
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    embs, scale, nh, nw = sam.encode_uint8_batch(params, cfg, frames)
+    batch = sam.masks_from_embedding_batch(params, cfg, embs, scale, nh, nw, h, w, bx, valid)
+    batch = batch.cpu().numpy()
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    counts = kernels.launch_counts()
+    _expect_launches(counts, per_call)
+    launches += counts["sam_attn"]
+    if batch.shape != (4, h, w) or batch.dtype != np.bool_:
+        raise AssertionError(f"batch masks {batch.shape} {batch.dtype}")
+    frame_diff = []
+    for i in range(4):
+        emb, *_ = sam.encode_uint8(params, cfg, frames[i])
+        single = sam.masks_from_embedding(params, cfg, emb, scale, nh, nw, h, w,
+                                          bx[i][valid[i]]).any(0)
+        frame_diff.append(int((single != batch[i]).sum()))
+    none_valid = valid.copy()
+    none_valid[3] = False
+    empty = sam.masks_from_embedding_batch(params, cfg, embs, scale, nh, nw, h, w, bx,
+                                           none_valid)[3]
+    metrics = {"sam_predict_ms": float(np.median(times)), "sam_predict_ms_all": times,
+               "encoder_ms": float(np.median(enc_ms)), "encoder_ms_all": enc_ms,
+               "batch4_ms": batch_ms, "mask_share_true": float(mask.mean()),
+               "batch_frame_pixels_differing_from_single": frame_diff,
+               "max_memory_allocated": peak, "card": smi}
+    log(json.dumps({"sam_path": "predict_boxes, ViT-B 1024², 480x640, 1 box", **metrics}))
+    if any(frame_diff):
+        raise AssertionError(f"batch frames differ from the single path: {frame_diff} pixels")
+    if bool(empty.any()):
+        raise AssertionError("a frame with no valid box is not all False")
+    return launches, metrics, mask[0]
+
+
+def check_mask_ops(device, mask) -> None:
+    """Phase 7: composite_by_mask(a, b, mask, 9) on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from tbist_tpu_torch.ops import masks
+
+    rng = np.random.default_rng(2)
+    a, b = (torch.from_numpy(rng.random((1, *mask.shape, 3), dtype=np.float32))
+            for _ in range(2))
+    m = torch.from_numpy(mask)
+    got = masks.composite_by_mask(a.to(device), b.to(device), m.to(device), 9).cpu()
+    want = masks.composite_by_mask(a, b, m, 9)
+    err = float((got - want).abs().max())
+    log(json.dumps({"mask_ops": "composite_by_mask(a, b, sam mask, 9), card vs cpu",
+                    "shape": list(got.shape), "max_abs_err": err}))
+    if not err <= 1e-5:
+        raise AssertionError("composite_by_mask: card and CPU disagree")
 
 
 SOURCES = {
@@ -318,7 +544,10 @@ SOURCES = {
     "pool_bwd": ("tbist_tpu_torch/csrc/pool_bwd.cu", "tbist_tpu/ops/pallas_pool.py:87"),
     "relu_pool_bwd": ("tbist_tpu_torch/csrc/pool_bwd.cu",
                       "tbist_tpu/ops/pallas_relu_pool.py:75"),
+    "sam_attn": ("tbist_tpu_torch/csrc/sam_attn.cu", "tbist_tpu/ops/pallas_sam_attn.py:57"),
 }
+PATHS = {"gram_fwd": "gatys", "gram_bwd": "gatys", "pool_bwd": "none",
+         "relu_pool_bwd": "gatys", "sam_attn": "sam"}
 
 
 def main() -> int:
@@ -359,16 +588,31 @@ def main() -> int:
 
     with phase("kernels"):
         summary = check_kernels(device, SIZE)
+        summary["sam_attn"] = check_sam_attn(device)
         conv_cl = check_conv_layout(device, SIZE)
 
     with phase("agreement"):
         check_agreement(device)
+        check_sam_agreement(device)
 
-    with phase("main path"):
+    with phase("gatys path"):
         counts, metrics, peak = run_main_path(SIZE, STEPS)
-        log(f"main path: {metrics.extra['iters_per_sec']:.2f} iters/s at {SIZE}px, "
+        log(f"gatys path: {metrics.extra['iters_per_sec']:.2f} iters/s at {SIZE}px, "
             f"{STEPS} steps, max_memory_allocated {peak / 2**30:.2f} GiB, on {smi}")
 
+    with phase("sam path"):
+        counts["sam_attn"], sam_metrics, mask = run_sam_path(device, smi)
+        log(f"sam path: predict_boxes {sam_metrics['sam_predict_ms']:.2f} ms (median), "
+            f"encoder {sam_metrics['encoder_ms']:.2f} ms, max_memory_allocated "
+            f"{sam_metrics['max_memory_allocated']} bytes, on {smi}")
+
+    with phase("mask ops"):
+        check_mask_ops(device, mask)
+
+    work = {
+        "gatys": "one step of the Gatys path at 512px, f32: the sum over its shapes",
+        "sam": "one launch at the 1024² encoder (N 12, T 4096, d 64), f32",
+    }
     rows = []
     for kname, (source, replaces) in SOURCES.items():
         s = summary[kname]
@@ -376,9 +620,8 @@ def main() -> int:
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": counts[kname], "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
-            "library_ms": s["library_ms"], "parity": "agree",
-            "work": "one step of the main path at 512px, f32: the sum over its shapes",
-            "on_main_path": kname != "pool_bwd",
+            "library_ms": s["library_ms"], "parity": "agree", "path": PATHS[kname],
+            "work": work["sam" if kname == "sam_attn" else "gatys"],
         })
     log(f"conv output channels-last at every style layer: {conv_cl}")
     log(smi)

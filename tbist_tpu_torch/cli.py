@@ -24,7 +24,7 @@ _UNPORTED_FLAGS = (
     ("video", "--video", "slice 7, items 28-30"),
     ("grayscale", "--grayscale", "item 11"),
     ("text_style", "--text-style", "items 17-19"),
-    ("text_location", "--text-location", "items 20-23"),
+    ("text_location", "--text-location", "items 20, 21, 23; SAM is ported"),
     ("text_texture", "--text-texture", "item 24"),
     ("pixel_art", "--pixel-art", "item 13"),
     ("pixel_from_image", "--pixel-from-image", "item 13"),

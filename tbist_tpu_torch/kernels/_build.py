@@ -24,7 +24,7 @@ from typing import Dict, Sequence
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tbist_kernels")
-SOURCES = ("gram.cu", "pool_bwd.cu")
+SOURCES = ("gram.cu", "pool_bwd.cu", "sam_attn.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v",

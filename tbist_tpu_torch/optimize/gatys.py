@@ -15,7 +15,6 @@ with the Gram matrices accumulated in f32.
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -26,6 +25,7 @@ from tbist_tpu_torch.ops import losses
 from tbist_tpu_torch.optimize import lbfgs
 from tbist_tpu_torch.utils.config import VGG_MEAN, VGG_STD, GatysConfig
 from tbist_tpu_torch.utils.imageio import resolve_device
+from tbist_tpu_torch.utils.precision import full_f32
 
 # optax.adam defaults
 _ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
@@ -36,18 +36,6 @@ def style_weight_from_strength(strength: float) -> float:
     if strength < 0:
         return 5e5
     return 5e5 * math.e ** (strength - 1.0 / strength)
-
-
-@contextlib.contextmanager
-def full_f32():
-    """TF32 off for cuDNN convolutions and cuBLAS matmuls; restored after."""
-    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def stylize(

@@ -5,15 +5,17 @@ optionally written as a Chrome trace). ``device_breakdown`` sums a trace's
 GPU kernel time by kind and measures how much of the traced window the
 device was busy.
 
-Run as a script on a machine with a CUDA card to profile the main path,
-Gatys L-BFGS on boat.jpg x starry_night.jpg::
+Run as a script on a machine with a CUDA card to profile a path: Gatys
+L-BFGS on boat.jpg x starry_night.jpg, or SAM ViT-B ``predict_boxes`` at
+1024² on seeded weights (a 480x640 image, one box)::
 
     python -m tbist_tpu_torch.utils.prof --size 512 --steps 30
+    python -m tbist_tpu_torch.utils.prof --path sam --steps 10
 
-It prints one JSON line: per-step device time by kind and of the top
-kernels, CUDA calls per step that can block the host, the device's busy
-share of the profiled window (the profiler's own host cost included), and
-iters/s of an unprofiled run of the same length.
+It prints one JSON line: device time by kind and of the top kernels per
+step (per call for SAM), CUDA calls per step that can block the host, the
+device's busy share of the profiled window (the profiler's own host cost
+included), and the rate of an unprofiled run of the same length.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 
 # kernel-name substrings -> kind, first match wins
 _KINDS = (
+    ("K4 sam attention (sam_attn.cu)", ("sam_attn_kernel",)),
     ("K1 gram (gram.cu)", ("gram_partial_kernel", "gram_reduce_kernel", "gram_bwd_kernel")),
     ("K3 relu-pool bwd (pool_bwd.cu)", ("pool_bwd_kernel",)),
     # cuDNN's FFT convolutions run complex (float2) GEMVs; its layout
@@ -38,6 +41,9 @@ _KINDS = (
                              "fft", "float2", "nchwToNhwc", "nhwcToNchw")),
     ("matmul (cuBLAS)", ("gemm", "gemv", "dot_kernel", "cutlass")),
     ("linear solve", ("getrf", "getrs", "trsm", "lu_", "laswp", "magma", "solve")),
+    ("softmax", ("softmax", "SoftMax")),
+    ("layer norm", ("layer_norm", "LayerNorm")),
+    ("resize", ("upsample", "interpolate")),
     ("reduction", ("reduce",)),
     ("elementwise", ("elementwise", "vectorized", "unrolled", "where", "clamp")),
 )
@@ -106,19 +112,63 @@ def device_breakdown(p) -> Dict:
     }
 
 
-def _main() -> None:
-    from tbist_tpu_torch.optimize import gatys
-    from tbist_tpu_torch.utils.config import GatysConfig
-    from tbist_tpu_torch.utils.imageio import load_image, to_device
-    from tbist_tpu_torch.weights import vgg as vgg_weights
+def _profile(run, steps: int, trace_path: Optional[str]) -> Dict:
+    """Time ``run()`` unprofiled, then profile it; ``run`` ends in a read-back."""
+    t0 = time.perf_counter()
+    run()
+    plain_s = time.perf_counter() - t0
+    with trace(trace_path) as p:
+        run()
+    out = device_breakdown(p)
+    per_step = {
+        key: {k: v / steps for k, v in out.pop(key, {}).items()}
+        for key in ("kernel_ms_by_kind", "top_kernels_ms", "blocking_calls")
+    }
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    return {"steps": steps, "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+            "iters_per_sec_unprofiled": steps / plain_s, "per_step": per_step, **out}
 
+
+def _sam(steps: int, trace_path: Optional[str]) -> Dict:
+    import numpy as np
+
+    from tbist_tpu_torch.models import sam
+    from tbist_tpu_torch.weights import sam as sam_weights
+
+    params = sam_weights.init_params(torch.Generator().manual_seed(0), sam.BASE, device="cuda")
+    img = (np.random.default_rng(0).random((480, 640, 3)) * 255).astype(np.uint8)
+    boxes = np.asarray([[100.0, 100.0, 400.0, 380.0]], np.float32)
+
+    def run():
+        for _ in range(steps):
+            sam.predict_boxes(params, sam.BASE, img, boxes)
+
+    for _ in range(2):  # warm-up
+        sam.predict_boxes(params, sam.BASE, img, boxes)
+    return {"profile": "sam predict_boxes, seeded ViT-B, 1024², 480x640, 1 box",
+            **_profile(run, steps, trace_path)}
+
+
+def _main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--size", type=int, default=512)
-    ap.add_argument("--steps", type=int, default=30)
+    ap.add_argument("--path", choices=("gatys", "sam"), default="gatys")
+    ap.add_argument("--size", type=int, default=512, help="Gatys image side")
+    ap.add_argument("--steps", type=int, default=30, help="steps (Gatys) or calls (SAM)")
     ap.add_argument("--trace", help="write a Chrome trace here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("prof: needs a CUDA device")
+    if args.path == "sam":
+        print(json.dumps(_sam(args.steps, args.trace)))
+        return
+
+    from tbist_tpu_torch.optimize import gatys
+    from tbist_tpu_torch.utils.config import GatysConfig
+    from tbist_tpu_torch.utils.imageio import load_image, to_device
+    from tbist_tpu_torch.weights import vgg as vgg_weights
 
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     imgs = [to_device(load_image(os.path.join(root, p)), bucket=32, max_side=args.size)
@@ -128,28 +178,11 @@ def _main() -> None:
     gatys.stylize(imgs[0], imgs[1:], GatysConfig(num_steps=3), params)  # warm-up
     torch.cuda.synchronize()
 
-    t0 = time.perf_counter()
-    _, hist = gatys.stylize(imgs[0], imgs[1:], cfg, params)
-    hist.cpu()
-    plain_s = time.perf_counter() - t0
-    with trace(args.trace) as p:
-        _, hist = gatys.stylize(imgs[0], imgs[1:], cfg, params)
-        hist.cpu()
-    out = device_breakdown(p)
-    per_step = {
-        key: {k: v / args.steps for k, v in out.pop(key, {}).items()}
-        for key in ("kernel_ms_by_kind", "top_kernels_ms", "blocking_calls")
-    }
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    ).stdout.strip()
-    print(json.dumps({
-        "profile": "gatys lbfgs stylize", "size": list(imgs[0].shape[1:3]),
-        "steps": args.steps, "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-        "iters_per_sec_unprofiled": args.steps / plain_s,
-        "per_step": per_step, **out,
-    }))
+    def run():
+        gatys.stylize(imgs[0], imgs[1:], cfg, params)[1].cpu()
+
+    print(json.dumps({"profile": "gatys lbfgs stylize", "size": list(imgs[0].shape[1:3]),
+                      **_profile(run, args.steps, args.trace)}))
 
 
 if __name__ == "__main__":

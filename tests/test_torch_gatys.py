@@ -20,6 +20,7 @@ from tbist_tpu_torch.optimize import gatys as tgatys
 from tbist_tpu_torch.utils import imageio as tio
 from tbist_tpu_torch.utils.config import EffectRequest, GatysConfig
 from tbist_tpu_torch.utils.logging import RunMetrics
+from tbist_tpu_torch.utils.precision import full_f32
 from tbist_tpu_torch.weights.vgg import from_jax_params
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -96,7 +97,7 @@ def test_full_f32_restores_tf32_flags():
     saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = True
     try:
-        with tgatys.full_f32():
+        with full_f32():
             assert not torch.backends.cudnn.allow_tf32
             assert not torch.backends.cuda.matmul.allow_tf32
         assert torch.backends.cudnn.allow_tf32

@@ -1,4 +1,4 @@
-"""Kernels K1-K3 of the port.
+"""Kernels K1-K4 of the port.
 
 Here on the CPU the wrappers take their plain PyTorch versions; those are
 held against the JAX package's Pallas kernels in interpret mode and
@@ -14,8 +14,8 @@ import pytest
 import torch
 
 from tbist_tpu_torch import kernels
-from tbist_tpu_torch.kernels import gram, pool, relu_pool
-from tbist_tpu_torch.optimize import gatys as tgatys
+from tbist_tpu_torch.kernels import gram, pool, relu_pool, sam_attn
+from tbist_tpu_torch.utils.precision import full_f32
 
 SHAPES = [(1, 16, 12, 8), (2, 8, 6, 3), (1, 4, 4, 64)]
 
@@ -138,6 +138,26 @@ def test_gram_split_rows_covers_every_row_once(b, n, c):
         assert (chunks - 1) * rows < n <= chunks * rows
 
 
+def _sam_attn_inputs(seed, n, h, w, d, device="cpu"):
+    rng = np.random.default_rng(seed)
+    t = h * w
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(device)
+            for s in ((n, t, d), (n, t, d), (n, t, d), (n, t, h), (n, t, w))]
+
+
+def test_sam_attn_plain_matches_pallas_in_interpret_mode():
+    from tbist_tpu.ops import pallas_sam_attn
+
+    n, h, w, d = 3, 8, 16, 16  # test_aux.py's shapes: a non-square grid
+    args = _sam_attn_inputs(7, n, h, w, d)
+    want = pallas_sam_attn.attention_with_rel_bias(
+        *(jnp.asarray(a.numpy()) for a in args), h, w, interpret=True)
+    kernels.reset_launch_counts()
+    got = sam_attn.attention_with_rel_bias(*args, h, w)
+    assert got.dtype == torch.float32 and kernels.launch_counts()["sam_attn"] == 0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
 def test_cpu_path_counts_no_launches():
     kernels.reset_launch_counts()
     x = torch.randn(1, 4, 4, 8, requires_grad=True)
@@ -153,6 +173,10 @@ def test_wrappers_reject_unsupported_devices():
         pool.pool_bwd(x, x[:, :2, :2], x[:, :2, :2])
     with pytest.raises(ValueError, match="CUDA or CPU"):
         gram.gram_fwd(x.reshape(1, 16, 8), 1.0)
+    q = torch.empty((2, 16, 8), device="meta")
+    b = torch.empty((2, 16, 4), device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        sam_attn.attention_with_rel_bias(q, q, q, b, b, 4, 4)
 
 
 # ---------------------------------------------------------------- on the card
@@ -169,7 +193,7 @@ def cuda():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,n,c", [(1, 4096, 64), (2, 1000, 128), (1, 256, 512), (1, 77, 24)])
 def test_gram_kernels_match_plain_on_card(cuda, dtype, b, n, c):
-    with tgatys.full_f32():  # the plain versions in full f32
+    with full_f32():  # the plain versions in full f32
         _check_gram_kernels(cuda, dtype, b, n, c)
 
 
@@ -202,3 +226,34 @@ def test_pool_kernels_match_plain_on_card(cuda, dtype, shape):
     out = torch.clamp_min(out, 0)
     torch.testing.assert_close(relu_pool.relu_pool_bwd(pre, out, g),
                                pool.pool_bwd_plain(pre, out, g, relu=True), rtol=0, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,h,w,d", [(2, 24, 40, 64), (3, 5, 7, 16), (1, 64, 64, 64),
+                                     (2, 9, 9, 8), (1, 8, 8, 128)])
+def test_sam_attn_kernel_matches_plain_on_card(cuda, n, h, w, d):
+    # ragged tails: 960, 35 and 81 tokens are not multiples of the 64-key tile
+    args = _sam_attn_inputs(13, n, h, w, d, cuda)
+    before = sam_attn.attention_with_rel_bias.launches
+    got = sam_attn.attention_with_rel_bias(*args, h, w)
+    assert sam_attn.attention_with_rel_bias.launches == before + 1
+    with full_f32():
+        want = sam_attn.attention_with_rel_bias_plain(*args, h, w)
+    torch.cuda.synchronize()
+    # the online softmax sums the T keys in another order
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.gpu
+def test_sam_attn_kernel_rejects_what_it_does_not_take(cuda):
+    q, k, v, bh, bw = _sam_attn_inputs(14, 2, 4, 4, 16, cuda)
+    with pytest.raises(ValueError, match="not h"):  # T = 16, h·w = 4·2
+        sam_attn.attention_with_rel_bias(q, k, v, bh, bw[..., :2].contiguous(), 4, 2)
+    with pytest.raises(TypeError, match="float32"):
+        sam_attn.attention_with_rel_bias(q.double(), k, v, bh, bw, 4, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        sam_attn.attention_with_rel_bias(q.transpose(0, 1).contiguous().transpose(0, 1),
+                                         k, v, bh, bw, 4, 4)
+    q6 = torch.zeros((2, 16, 6), device=cuda)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        sam_attn.attention_with_rel_bias(q6, q6, q6, bh, bw, 4, 4)

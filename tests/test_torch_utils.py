@@ -110,6 +110,9 @@ def test_prof_kinds_and_cpu_trace():
     assert prof.kind_of("pool_bwd_kernel<float, true>") == "K3 relu-pool bwd (pool_bwd.cu)"
     assert prof.kind_of("gemv2N_kernel<int, int, float2, float2>") == "convolution (cuDNN)"
     assert prof.kind_of("sm80_xmma_gemm_f32f32_tn_n") == "matmul (cuBLAS)"
+    assert prof.kind_of("void (anonymous namespace)::sam_attn_kernel<4>(float const*)") == \
+        "K4 sam attention (sam_attn.cu)"
+    assert prof.kind_of("void cunn_SoftMaxForward<4, float>") == "softmax"
     assert prof.kind_of("something_new") == "other"
     with prof.trace() as p:
         torch.ones(4).sum()
