@@ -13,6 +13,7 @@ Phases, each fatal:
    and bf16; K4 at the 1024² SAM encoder for one and four images, and at a
    ragged 24x40 grid), held against its plain PyTorch version on the same
    inputs and timed with CUDA events beside its bound and a library yardstick;
+   two calls of K1's forward must agree bit for bit;
 4. agreement: ``stylize`` on the card against the plain CPU path (8 steps,
    64px, torch-seeded weights), plus an 8-step bf16 run; SAM ViT-B (seeded,
    full width, adapted to a 256 input) on the card against the CPU;
@@ -175,6 +176,8 @@ def _check_kernels(device, size: int):
             x = torch.randn((b, n, c), generator=gen, device=device).to(dtype)
             norm = 1.0 / (n * c)
             got = gram.gram_fwd(x, norm)
+            if not torch.equal(gram.gram_fwd(x, norm), got):
+                raise AssertionError(f"gram_fwd {(b, n, c)} {dtype}: two calls differ")
             want = gram.gram_fwd_plain(x, norm)
             record("gram_fwd", (b, n, c), dtype, got, want, 1e-5, 1e-5 * float(want.abs().max()),
                    time_ms(lambda x: gram.gram_fwd(x, norm), (x,)),

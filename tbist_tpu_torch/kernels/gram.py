@@ -16,25 +16,41 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
 from tbist_tpu_torch.kernels import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ROWS_PER_STEP = 32  # BK of gram.cu: chunks are whole multiples of it
-_TILE = 64
-_BLOCKS_PER_SM = 4  # split-K blocks in flight per SM
+SLAB_ROWS = 8  # BK of gram.cu: forward chunks are whole multiples of it
+# gram.cu's two tile configurations, by index: output tile edge and the
+# blocks per SM its registers allow (0: 128x128, 256 threads of 8x8;
+# 1: 64x64, 128 threads of 8x4)
+TILE_EDGE = (128, 64)
+BLOCKS_PER_SM = (2, 4)
+
+
+class FwdPlan(NamedTuple):
+    """The forward's launch: tile configuration, tiles along C, upper tiles
+    launched per (batch, chunk), and the split-K of the rows."""
+
+    tile: int
+    tiles: int
+    upper: int
+    chunks: int
+    rows: int
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.library("gram.cu")
-    p, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.tbist_gram_fwd.argtypes = [p, p, p, i64, i64, i64, i64, i64, ctypes.c_float, ctypes.c_int, p]
-    lib.tbist_gram_fwd.restype = ctypes.c_int
-    lib.tbist_gram_bwd.argtypes = [p, p, p, i64, i64, i64, ctypes.c_int, p]
-    lib.tbist_gram_bwd.restype = ctypes.c_int
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.tbist_gram_fwd.argtypes = [p, p, p, i64, i64, i64, i64, i64, ctypes.c_float, i32, i32,
+                                   i32, p]
+    lib.tbist_gram_fwd.restype = i32
+    lib.tbist_gram_bwd.argtypes = [p, p, p, i64, i64, i64, i32, i32, i32, p]
+    lib.tbist_gram_bwd.restype = i32
     return lib
 
 
@@ -50,18 +66,58 @@ def _check_cuda(name: str, t: torch.Tensor, ndim: int, dtypes) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _target_blocks(device_index: int) -> int:
-    return _BLOCKS_PER_SM * torch.cuda.get_device_properties(device_index).multi_processor_count
+def _sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def split_rows(b: int, n: int, c: int, target_blocks: int):
+def upper_tile(t: int, tiles: int) -> Tuple[int, int]:
+    """(ti, tj), ti <= tj, of upper tile ``t``: row-major over the upper
+    triangle of a tiles x tiles grid, as gram.cu derives it from blockIdx.x."""
+    ti = 0
+    while t >= tiles - ti:
+        t -= tiles - ti
+        ti += 1
+    return ti, ti + t
+
+
+def fwd_tile(c: int) -> int:
+    """The forward's configuration: 64x64 tiles when C fits one of them."""
+    return 0 if c > TILE_EDGE[1] else 1
+
+
+def _upper_tiles(c: int) -> Tuple[int, int, int]:
+    """(configuration, tiles along C, upper tiles) of the forward."""
+    tile = fwd_tile(c)
+    tiles = -(-c // TILE_EDGE[tile])
+    return tile, tiles, tiles * (tiles + 1) // 2
+
+
+def split_rows(b: int, n: int, c: int, target_blocks: int) -> Tuple[int, int]:
     """(chunks, rows_per_chunk) of the forward's split-K grid: enough
     chunks to put about ``target_blocks`` blocks in flight."""
-    tiles = -(-c // _TILE)
-    chunks = max(1, min(-(-n // _ROWS_PER_STEP), -(-target_blocks // (tiles * tiles * b))))
+    upper = _upper_tiles(c)[2]
+    chunks = max(1, min(-(-n // SLAB_ROWS), -(-target_blocks // (upper * b))))
     rows = -(-n // chunks)
-    rows = -(-rows // _ROWS_PER_STEP) * _ROWS_PER_STEP
+    rows = -(-rows // SLAB_ROWS) * SLAB_ROWS
     return -(-n // rows), rows
+
+
+def fwd_plan(b: int, n: int, c: int, sms: int) -> FwdPlan:
+    tile, tiles, upper = _upper_tiles(c)
+    return FwdPlan(tile, tiles, upper, *split_rows(b, n, c, BLOCKS_PER_SM[tile] * sms))
+
+
+def bwd_tile(b: int, n: int, c: int, sms: int) -> int:
+    """The backward's configuration: 128x128 tiles when C is wider than 64
+    and their grid gives every SM a block, else 64x64."""
+    edge = TILE_EDGE[0]
+    return 0 if c > TILE_EDGE[1] and b * -(-n // edge) * -(-c // edge) >= sms else 1
+
+
+def vector_staging(c: int, width: int, *tensors: torch.Tensor) -> bool:
+    """Whether gram.cu stages with 16-byte copies: ``width`` values of C a
+    vector, and every base pointer 16-byte aligned. Else its scalar branch."""
+    return c % width == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def gram_fwd_plain(x: torch.Tensor, norm: float) -> torch.Tensor:
@@ -81,13 +137,16 @@ def gram_fwd(x: torch.Tensor, norm: float) -> torch.Tensor:
         return gram_fwd_plain(x, norm)
     _check_cuda("gram_fwd x", x, 3, _DTYPE_CODE)
     b, n, c = x.shape
-    chunks, rows = split_rows(b, n, c, _target_blocks(x.device.index))
-    partial = torch.empty((b, chunks, c, c), dtype=torch.float32, device=x.device)
+    plan = fwd_plan(b, n, c, _sms(x.device.index))
+    edge = TILE_EDGE[plan.tile]
+    partial = torch.empty((b, plan.chunks, plan.upper, edge, edge), dtype=torch.float32,
+                          device=x.device)
     out = torch.empty((b, c, c), dtype=torch.float32, device=x.device)
+    vector = vector_staging(c, 16 // x.element_size(), x)
     with torch.cuda.device(x.device):
         err = _lib().tbist_gram_fwd(
-            x.data_ptr(), partial.data_ptr(), out.data_ptr(), b, n, c, rows,
-            chunks, float(norm), _DTYPE_CODE[x.dtype],
+            x.data_ptr(), partial.data_ptr(), out.data_ptr(), b, n, c, plan.rows,
+            plan.chunks, float(norm), _DTYPE_CODE[x.dtype], plan.tile, vector,
             torch.cuda.current_stream().cuda_stream,
         )
     if err:
@@ -109,10 +168,12 @@ def gram_bwd(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     if m.shape != (b, c, c) or m.device != x.device:
         raise ValueError(f"gram_bwd: m {tuple(m.shape)} does not fit x {tuple(x.shape)}")
     dx = torch.empty_like(x)
+    tile = bwd_tile(b, n, c, _sms(x.device.index))
+    vector = vector_staging(c, 4, x, m, dx)
     with torch.cuda.device(x.device):
         err = _lib().tbist_gram_bwd(
             x.data_ptr(), m.data_ptr(), dx.data_ptr(), b, n, c,
-            _DTYPE_CODE[x.dtype], torch.cuda.current_stream().cuda_stream,
+            _DTYPE_CODE[x.dtype], tile, vector, torch.cuda.current_stream().cuda_stream,
         )
     if err:
         raise RuntimeError(f"gram_bwd: kernel launch failed with CUDA error {err}")

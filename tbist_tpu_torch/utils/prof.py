@@ -33,7 +33,7 @@ import torch
 # kernel-name substrings -> kind, first match wins
 _KINDS = (
     ("K4 sam attention (sam_attn.cu)", ("sam_attn_kernel",)),
-    ("K1 gram (gram.cu)", ("gram_partial_kernel", "gram_reduce_kernel", "gram_bwd_kernel")),
+    ("K1 gram (gram.cu)", ("gram_fwd_kernel", "gram_reduce_kernel", "gram_bwd_kernel")),
     ("K3 relu-pool bwd (pool_bwd.cu)", ("pool_bwd_kernel",)),
     # cuDNN's FFT convolutions run complex (float2) GEMVs; its layout
     # transposes (nchwToNhwc, nhwcToNchw) belong to the convolutions too

@@ -134,8 +134,100 @@ def test_gram_backward_matches_pallas_vjp_in_interpret_mode():
 def test_gram_split_rows_covers_every_row_once(b, n, c):
     for target_blocks in (4 * 132, 4 * 114, 4 * 16, 1):  # H100 SXM, H100 PCIe, small slices
         chunks, rows = gram.split_rows(b, n, c, target_blocks)
-        assert rows % 32 == 0 and chunks >= 1
+        assert rows % gram.SLAB_ROWS == 0 and chunks >= 1
         assert (chunks - 1) * rows < n <= chunks * rows
+
+
+@pytest.mark.parametrize(
+    "b,n,c,fwd,bwd",
+    [
+        # the five style layers at 512px on 132 SMs:
+        # (tile, tiles, upper, chunks, rows) of the forward, tile of the backward
+        (1, 262144, 64, (1, 1, 1, 521, 504), 1),
+        (1, 65536, 128, (0, 1, 1, 256, 256), 0),
+        (1, 16384, 256, (0, 2, 3, 86, 192), 0),
+        (1, 4096, 512, (0, 4, 10, 27, 152), 1),
+        (1, 1024, 512, (0, 4, 10, 26, 40), 1),
+        (3, 37, 200, (0, 2, 3, 5, 8), 1),
+        (2, 1, 8, (1, 1, 1, 1, 8), 1),
+    ],
+)
+def test_gram_plan_picks_tiles_and_split(b, n, c, fwd, bwd):
+    plan = gram.fwd_plan(b, n, c, 132)
+    assert tuple(plan) == fwd
+    # about BLOCKS_PER_SM blocks on each SM, never a row of chunks more
+    assert plan.upper * plan.chunks * b < (gram.BLOCKS_PER_SM[plan.tile] + 1) * 132
+    assert gram.bwd_tile(b, n, c, 132) == bwd
+
+
+@pytest.mark.parametrize("c", [8, 24, 64, 128, 200, 256, 512])
+def test_gram_upper_tiles_mirrored_cover_every_tile_once(c):
+    plan = gram.fwd_plan(1, 4096, c, 132)
+    assert plan.tiles == -(-c // gram.TILE_EDGE[plan.tile])
+    covered = []
+    for t in range(plan.upper):
+        ti, tj = gram.upper_tile(t, plan.tiles)
+        assert 0 <= ti <= tj < plan.tiles
+        covered += [(ti, tj)] if ti == tj else [(ti, tj), (tj, ti)]
+    assert sorted(covered) == [(i, j) for i in range(plan.tiles) for j in range(plan.tiles)]
+
+
+def _gram_fwd_emulated(x, norm, sms):
+    """gram.cu's forward in torch: each chunk's rows give each upper tile a
+    partial (zero-padded past N and C), the partials are summed in chunk
+    order, scaled, and mirrored below the diagonal; a diagonal tile's
+    lower-left quadrant is not computed but mirrored from its upper right."""
+    b, n, c = x.shape
+    plan = gram.fwd_plan(b, n, c, sms)
+    edge = gram.TILE_EDGE[plan.tile]
+    xp = torch.zeros((b, plan.chunks * plan.rows, plan.tiles * edge))
+    xp[:, :n, :c] = x.float()
+    xp = xp.reshape(b, plan.chunks, plan.rows, plan.tiles, edge)
+    total = torch.zeros((b, plan.upper, edge, edge))
+    for k in range(plan.chunks):
+        part = torch.stack([xp[:, k, :, ti].transpose(1, 2) @ xp[:, k, :, tj]
+                            for ti, tj in (gram.upper_tile(t, plan.tiles)
+                                           for t in range(plan.upper))], 1)
+        total = total + part
+    g = torch.zeros((b, plan.tiles * edge, plan.tiles * edge))
+    for t in range(plan.upper):
+        ti, tj = gram.upper_tile(t, plan.tiles)
+        blk = total[:, t] * norm
+        if ti == tj:
+            h = edge // 2
+            blk[:, h:, :h] = blk[:, :h, h:].transpose(1, 2)
+        g[:, ti * edge:(ti + 1) * edge, tj * edge:(tj + 1) * edge] = blk
+        if ti != tj:
+            g[:, tj * edge:(tj + 1) * edge, ti * edge:(ti + 1) * edge] = blk.transpose(1, 2)
+    return plan, g[:, :c, :c]
+
+
+@pytest.mark.parametrize("n,c,sms", [(1003, 200, 132), (517, 64, 8), (999, 200, 2)])
+def test_gram_upper_tile_emulation_matches_plain_and_pallas(n, c, sms):
+    from jax.experimental.pallas import tpu as pltpu
+
+    from tbist_tpu.ops import pallas_gram
+
+    x = np.random.default_rng(15).standard_normal((n, c)).astype(np.float32)
+    norm = 1.0 / (n * c)
+    plan, got = _gram_fwd_emulated(torch.from_numpy(x)[None], norm, sms)
+    assert plan.chunks > 1 and plan.chunks * plan.rows > n  # a split with a ragged last chunk
+    with full_f32():
+        want = gram.gram_fwd_plain(torch.from_numpy(x)[None], norm)
+    atol = 1e-5 * float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(pallas_gram.gram_2d(jnp.asarray(x), norm))
+    np.testing.assert_allclose(got[0].numpy(), ref, rtol=1e-5, atol=atol)
+
+
+def test_gram_vector_staging_needs_width_and_alignment():
+    flat = torch.zeros(1 + 16 * 64)
+    assert gram.vector_staging(64, 4, flat[:-1].view(1, 16, 64))
+    assert not gram.vector_staging(64, 4, flat[1:].view(1, 16, 64))  # 4 bytes off
+    assert not gram.vector_staging(30, 4, flat[:-1 - 16 * 4].view(1, 16, 60))
+    assert gram.vector_staging(24, 8, torch.zeros((1, 4, 24), dtype=torch.bfloat16))
+    assert not gram.vector_staging(20, 8, torch.zeros((1, 4, 20), dtype=torch.bfloat16))
 
 
 def _sam_attn_inputs(seed, n, h, w, d, device="cpu"):
@@ -191,15 +283,44 @@ def cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,n,c", [(1, 4096, 64), (2, 1000, 128), (1, 256, 512), (1, 77, 24)])
+@pytest.mark.parametrize("b,n,c", [(1, 4096, 64), (2, 1000, 128), (1, 256, 512), (1, 77, 24),
+                                   # two 128 tiles, one off the diagonal, ragged N and C
+                                   (1, 20000, 200), (3, 37, 200), (1, 262144, 64)])
 def test_gram_kernels_match_plain_on_card(cuda, dtype, b, n, c):
     with full_f32():  # the plain versions in full f32
-        _check_gram_kernels(cuda, dtype, b, n, c)
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        _check_gram_kernels(torch.randn((b, n, c), generator=gen, device=cuda).to(dtype))
 
 
-def _check_gram_kernels(cuda, dtype, b, n, c):
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("view", ["c30", "offset"])
+def test_gram_kernels_scalar_staging_on_card(cuda, dtype, view):
+    # C % 4 != 0, or a base pointer 2 or 4 bytes off 16: the scalar branch
+    b, n, c = 2, 300, 30 if view == "c30" else 64
+    flat = torch.randn(1 + b * n * c, generator=torch.Generator(device=cuda).manual_seed(1),
+                       device=cuda).to(dtype)
+    x = flat[1:].view(b, n, c) if view == "offset" else flat[:-1].view(b, n, c)
+    assert not gram.vector_staging(c, 4, x) and not gram.vector_staging(c, 8, x)
+    with full_f32():
+        _check_gram_kernels(x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,c", [(1, 262144, 64), (1, 4096, 512), (3, 37, 200)])
+def test_gram_kernels_repeat_bitwise_on_card(cuda, b, n, c):
+    x = torch.randn((b, n, c), generator=torch.Generator(device=cuda).manual_seed(2),
+                    device=cuda)
+    m = torch.randn((b, c, c), generator=torch.Generator(device=cuda).manual_seed(3),
+                    device=cuda)
+    assert torch.equal(gram.gram_fwd(x, 0.5), gram.gram_fwd(x, 0.5))
+    assert torch.equal(gram.gram_bwd(x, m), gram.gram_bwd(x, m))
+
+
+def _check_gram_kernels(x):
+    b, n, c = x.shape
+    dtype, cuda = x.dtype, x.device
     gen = torch.Generator(device=cuda).manual_seed(0)
-    x = torch.randn((b, n, c), generator=gen, device=cuda).to(dtype)
     before = gram.gram_fwd.launches
     got = gram.gram_fwd(x, 0.5)
     assert gram.gram_fwd.launches == before + 1

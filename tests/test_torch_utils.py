@@ -107,6 +107,10 @@ def test_prof_kinds_and_cpu_trace():
     from tbist_tpu_torch.utils import prof
 
     assert prof.kind_of("void (anonymous namespace)::gram_bwd_kernel<float>") == "K1 gram (gram.cu)"
+    for name in ("void (anonymous namespace)::gram_fwd_kernel<(anonymous namespace)::Tile<128, "
+                 "256, 8, 8, 16, 2>, float, true>(float const*, float*, long, int, long, int)",
+                 "(anonymous namespace)::gram_reduce_kernel(float const*, float*, int, int)"):
+        assert prof.kind_of(name) == "K1 gram (gram.cu)"
     assert prof.kind_of("pool_bwd_kernel<float, true>") == "K3 relu-pool bwd (pool_bwd.cu)"
     assert prof.kind_of("gemv2N_kernel<int, int, float2, float2>") == "convolution (cuDNN)"
     assert prof.kind_of("sm80_xmma_gemm_f32f32_tn_n") == "matmul (cuBLAS)"
