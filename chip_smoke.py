@@ -10,10 +10,11 @@ Phases, each fatal:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every kernel of ``tbist_tpu_torch/csrc`` with ``nvcc``, in parallel;
 3. kernels: each kernel's wrapper at its path's shapes (K1-K3 at 512px, f32
-   and bf16; K4 at the 1024² SAM encoder for one and four images, and at a
-   ragged 24x40 grid), held against its plain PyTorch version on the same
-   inputs and timed with CUDA events beside its bound and a library yardstick;
-   two calls of K1's forward must agree bit for bit;
+   and bf16; K4 at the 1024² SAM encoder for one and four images, at a
+   ragged 24x40 grid and at SAM's 16x16 grid for a 256 input), held against
+   its plain PyTorch version on the same inputs and timed with CUDA events
+   beside its bound and a library yardstick; two calls of K1's forward, and
+   of K4, must agree bit for bit;
 4. agreement: ``stylize`` on the card against the plain CPU path (8 steps,
    64px, torch-seeded weights), plus an 8-step bf16 run; SAM ViT-B (seeded,
    full width, adapted to a 256 input) on the card against the CPU;
@@ -49,14 +50,15 @@ STYLE_LAYERS = ("conv1_1", "conv2_1", "conv3_1", "conv4_1", "conv5_1")
 GRAM_CHANNELS = (64, 128, 256, 512, 512)  # conv1_1 .. conv5_1
 POOL_CHANNELS = (64, 128, 256, 512)  # pool1 .. pool4
 # H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the tensor cores,
-# bf16 on the tensor cores, and HBM3 bandwidth.
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# bf16 and TF32 on the tensor cores, and HBM3 bandwidth.
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 PEAK_BYTES = 3.35e12
 L2_BYTES = 50e6  # the H100's L2 cache
 ITERS = 50
-# K4 shapes (N = B·heads, h, w, d): one 1024² image (12 heads, T = 4096), the
-# batch lane's four, and a ragged grid (T = 960 is not a multiple of 64)
-SAM_ATTN_SHAPES = ((12, 64, 64, 64), (48, 64, 64, 64), (3, 24, 40, 64))
+# K4 shapes (N = B·heads, h, w, d): (a) one 1024² image (12 heads, T = 4096),
+# (b) the batch lane's four, (c) a ragged grid (T = 960 is not a multiple of
+# 64), (d) SAM at 256 (T = 256); (c) and (d) split their keys
+SAM_ATTN_SHAPES = ((12, 64, 64, 64), (48, 64, 64, 64), (3, 24, 40, 64), (12, 16, 16, 64))
 SAM_ITERS = 10
 # the JAX package's SAM benchmark input (benchmarks/suite.py:56-64)
 SAM_IMAGE_HW = (480, 640)
@@ -242,6 +244,7 @@ def _check_sam_attn(device):
     from tbist_tpu_torch.kernels import sam_attn
 
     gen = torch.Generator(device=device).manual_seed(1)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     lines = []
     for n, h, w, d in SAM_ATTN_SHAPES:
         t = h * w
@@ -251,8 +254,11 @@ def _check_sam_attn(device):
         bw = torch.randn((n, t, w), generator=gen, device=device)
         args = (q, k, v, bh, bw)
         got = sam_attn.attention_with_rel_bias(*args, h, w)
+        if not torch.equal(sam_attn.attention_with_rel_bias(*args, h, w), got):
+            raise AssertionError(f"sam_attn {(n, h, w, d)}: two calls differ")
         want = sam_attn.attention_with_rel_bias_plain(*args, h, w)
-        # the online softmax sums the T keys in another order
+        # the online softmax sums the T keys in another order, and the
+        # 3xTF32 products are within a few f32 roundings of the f32 ones
         rtol, atol = 1e-4, 1e-5 * float(want.abs().max())
         err = (got - want).abs()
         ok, max_err = bool(torch.all(err <= atol + rtol * want.abs())), float(err.max())
@@ -266,12 +272,15 @@ def _check_sam_attn(device):
             q, k, v, attn_mask=b, scale=1.0), (q, k, v, bias), SAM_ITERS)
         del bias
         # each input read once and the output written once; the two products
-        b_ms, b_by = bound_ms(4 * (4 * n * t * d + n * t * (h + w)), 4 * n * t * t * d,
-                              "float32")
+        # as 3xTF32 on the tensor cores (three MMAs each), and beside it the
+        # same products in f32 on the CUDA cores
+        nbytes, flops = 4 * (4 * n * t * d + n * t * (h + w)), 4 * n * t * t * d
+        b_ms, b_by = bound_ms(nbytes, 3 * flops, "tf32")
         line = {"kernel": "sam_attn", "shape": {"N": n, "T": t, "d": d, "h": h, "w": w},
-                "dtype": "float32", "max_abs_err": max_err, "rtol": rtol,
-                "atol": atol, "agree": ok, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                "bound_ms": b_ms, "bound_by": b_by}
+                "dtype": "float32", "splits": sam_attn.kv_splits(n, t, sms),
+                "max_abs_err": max_err, "rtol": rtol, "atol": atol, "agree": ok, "ms": ms,
+                "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "f32_simt_bound_ms": bound_ms(nbytes, flops, "float32")[0]}
         log(json.dumps(line))
         if not ok:
             raise AssertionError(f"sam_attn {(n, h, w, d)}: kernel disagrees with plain version")
@@ -614,7 +623,7 @@ def main() -> int:
 
     work = {
         "gatys": "one step of the Gatys path at 512px, f32: the sum over its shapes",
-        "sam": "one launch at the 1024² encoder (N 12, T 4096, d 64), f32",
+        "sam": "one launch at the 1024² encoder (N 12, T 4096, d 64), f32 as 3xTF32",
     }
     rows = []
     for kname, (source, replaces) in SOURCES.items():
@@ -625,6 +634,7 @@ def main() -> int:
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
             "library_ms": s["library_ms"], "parity": "agree", "path": PATHS[kname],
             "work": work["sam" if kname == "sam_attn" else "gatys"],
+            "f32_simt_bound_ms": s.get("f32_simt_bound_ms"),  # K4's bound off the tensor cores
         })
     log(f"conv output channels-last at every style layer: {conv_cl}")
     log(smi)

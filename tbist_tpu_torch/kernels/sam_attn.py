@@ -1,5 +1,5 @@
-"""K4: SAM global attention with the decomposed relative-position bias, on
-the hand-written CUDA kernel of ``csrc/sam_attn.cu``.
+"""K4: SAM global attention with the decomposed relative-position bias,
+on the hand-written CUDA kernels of ``csrc/sam_attn.cu``.
 
 Replaces ``tbist_tpu/ops/pallas_sam_attn.py`` (``attention_with_rel_bias``
 :57, kernel ``_kernel`` :34). The JAX package takes its kernel only for
@@ -7,8 +7,16 @@ grids of 4096 tokens or more on a TPU (``sam._use_pallas_attn``); the port's
 ``models.sam`` sends every global-attention layer on a CUDA tensor here,
 whatever the grid.
 
-A CUDA tensor goes to the kernel (or raises); a CPU tensor takes the plain
-PyTorch version beside it. The wrapper counts its launches in
+The kernel runs both products on the tensor cores in 3xTF32 (each f32
+operand split into two TF32 parts, three MMAs per product), which keeps
+f32's accuracy; the bias and the softmax are f32. Where ``N·⌈T/64⌉`` blocks
+cannot fill the card, ``kv_splits`` splits the keys: each split writes a
+partial (O, m, l) to scratch and a second kernel merges them in split order
+(``combine_splits_plain`` is its plain version). A call counts as one launch
+either way.
+
+A CUDA tensor goes to the kernels (or raises); a CPU tensor takes the plain
+PyTorch version beside them. The wrapper counts its launches in
 ``attention_with_rel_bias.launches``. Inference only: no backward.
 """
 
@@ -16,21 +24,77 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import List, Optional, Tuple
 
 import torch
 
 from tbist_tpu_torch.kernels import _build
 
 MAX_HEAD_DIM = 128
+QUERY_TILE = 64  # query rows per block of sam_attn.cu
+KEY_TILE = 64  # keys per step of its loop
+BLOCKS_PER_SM = 2  # the blocks an SM holds at d <= 64 (registers and shared memory)
+MAX_SMEM = 232448  # shared memory a Hopper block can opt in to
+LOG2E = 1.4426950408889634
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.library("sam_attn.cu")
     p, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.tbist_sam_attn.argtypes = [p, p, p, p, p, p, i64, i64, i64, i64, i64, p]
+    lib.tbist_sam_attn.argtypes = [p, p, p, p, p, p, p, p, p] + [i64] * 7 + [p]
     lib.tbist_sam_attn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def head_pad(d: int) -> int:
+    """The kernel's padded head dim: the smallest of 16, 32, 64, 128 >= d."""
+    return next(p for p in (16, 32, 64, 128) if d <= p)
+
+
+def smem_bytes(d: int, h: int, w: int) -> int:
+    """A block's shared memory (``sam_attn.cu:smem_bytes``): two stages of K
+    and V at row strides of the padded d (+ 16 where it is a multiple of 32)
+    and d + 4, two tables of the tile's key rows and columns, and the q
+    tile's bias rows at strides h + 1, w + 1."""
+    dp = head_pad(d)
+    ldk = dp + 16 if dp % 32 == 0 else dp
+    return 4 * (2 * KEY_TILE * (ldk + dp + 4) + 4 * KEY_TILE
+                + QUERY_TILE * (h + 1) + QUERY_TILE * (w + 1))
+
+
+def tiles_per_split(t: int, splits: int) -> int:
+    return _cdiv(_cdiv(t, KEY_TILE), splits)
+
+
+def _whole_splits(t: int, splits: int) -> int:
+    """The split count that covers the key tiles with none empty, at most
+    ``splits``: the last split may be short, never empty."""
+    return _cdiv(_cdiv(t, KEY_TILE), tiles_per_split(t, splits))
+
+
+def kv_splits(n: int, t: int, sms: int) -> int:
+    """Key splits for N heads of T tokens on ``sms`` SMs: 1 when the
+    ``N·⌈T/64⌉`` blocks give each SM ``BLOCKS_PER_SM``, else enough splits
+    (at most one per key tile) to reach that."""
+    blocks = n * _cdiv(t, QUERY_TILE)
+    want = min(_cdiv(t, KEY_TILE), _cdiv(BLOCKS_PER_SM * sms, blocks))
+    return _whole_splits(t, max(1, want))
+
+
+def split_bounds(t: int, splits: int) -> List[Tuple[int, int]]:
+    """The key range [lo, hi) of each split, in split order."""
+    per = tiles_per_split(t, splits) * KEY_TILE
+    return [(s * per, min((s + 1) * per, t)) for s in range(_whole_splits(t, splits))]
 
 
 def attention_with_rel_bias_plain(
@@ -45,15 +109,30 @@ def attention_with_rel_bias_plain(
     return torch.matmul(torch.softmax(logits, -1), v)
 
 
-def attention_with_rel_bias(
+def attention_partial_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-    bias_h: torch.Tensor, bias_w: torch.Tensor, h: int, w: int,
-) -> torch.Tensor:
-    """q (pre-scaled), k, v: (N, T, d); bias_h: (N, T, h); bias_w: (N, T, w)
-    with T = h·w in row-major (y, x) order. Returns the f32 (N, T, d)
-    softmax(q kᵀ + bias) v, where bias[i, j] = bias_h[i, j // w] + bias_w[i, j % w]."""
-    if q.device.type == "cpu":
-        return attention_with_rel_bias_plain(q, k, v, bias_h, bias_w, h, w)
+    bias_h: torch.Tensor, bias_w: torch.Tensor, h: int, w: int, lo: int, hi: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """What one key split of the kernel writes for keys [lo, hi): the
+    unnormalised (N, T, d) O = Σ_j 2^(s_j - m) v_j, the row maximum m of the
+    logits s in log2 units (N, T), and the row sum l = Σ_j 2^(s_j - m)."""
+    n, t, _ = q.shape
+    bias = (bias_h.reshape(n, t, h, 1) + bias_w.reshape(n, t, 1, w)).reshape(n, t, t)
+    s = (torch.matmul(q, k[:, lo:hi].transpose(1, 2)) + bias[:, :, lo:hi]) * LOG2E
+    m = s.amax(-1)
+    p = torch.exp2(s - m[..., None])
+    return torch.matmul(p, v[:, lo:hi]), m, p.sum(-1)
+
+
+def combine_splits_plain(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
+    """The merge of ``sam_attn_combine_kernel``: (S, N, T, d) partial O and
+    (S, N, T) m, l of S key splits -> (N, T, d), with the log-sum-exp
+    rescale to the largest m."""
+    scale = torch.exp2(m - m.amax(0))
+    return (o * scale[..., None]).sum(0) / (l * scale).sum(0)[..., None]
+
+
+def _check(q, k, v, bias_h, bias_w, h, w) -> None:
     if q.dim() != 3:
         raise ValueError(f"sam_attn: q must be (N, T, d), got {tuple(q.shape)}")
     n, t, d = q.shape
@@ -69,17 +148,37 @@ def attention_with_rel_bias(
             raise ValueError(f"sam_attn {name}: shape {tuple(x.shape)}, expected {want[name]}")
         if not x.is_contiguous():
             raise ValueError(f"sam_attn {name}: tensor must be contiguous")
+        if name in ("q", "k", "v") and x.data_ptr() % 16:
+            raise ValueError(f"sam_attn {name}: data must be 16-byte aligned")
     if t != h * w:
         raise ValueError(f"sam_attn: T = {t} is not h·w = {h}·{w}")
     if d % 4 or not 0 < d <= MAX_HEAD_DIM:
         raise ValueError(f"sam_attn: head dim {d} must be a multiple of 4 in (0, {MAX_HEAD_DIM}]")
+    if smem_bytes(d, h, w) > MAX_SMEM:
+        raise ValueError(f"sam_attn: a {h}x{w} grid at head dim {d} needs "
+                         f"{smem_bytes(d, h, w)} bytes of shared memory a block, "
+                         f"over the {MAX_SMEM} a block can have")
+
+
+def _launch(q, k, v, bias_h, bias_w, h: int, w: int, splits: Optional[int]) -> torch.Tensor:
+    """The kernels on CUDA tensors, the keys split ``splits`` ways, or as
+    ``kv_splits`` says where ``splits`` is None."""
+    _check(q, k, v, bias_h, bias_w, h, w)
+    n, t, d = q.shape
+    if splits is None:
+        splits = kv_splits(n, t, _sms(q.device.index))
+    splits = _whole_splits(t, splits)
     out = torch.empty_like(q)
+    scratch = [None] * 3  # partial O, m and l of each split
+    if splits > 1:
+        scratch = [torch.empty(shape, dtype=torch.float32, device=q.device)
+                   for shape in ((splits, n, t, d), (splits, n, t), (splits, n, t))]
     with torch.cuda.device(q.device):
-        # a block's shared memory grows with d, h and w: past the card's
-        # limit the launch is refused and err says so
         err = _lib().tbist_sam_attn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_h.data_ptr(), bias_w.data_ptr(),
-            out.data_ptr(), n, t, d, h, w, torch.cuda.current_stream().cuda_stream,
+            out.data_ptr(), *(None if x is None else x.data_ptr() for x in scratch),
+            n, t, d, h, w, splits, tiles_per_split(t, splits),
+            torch.cuda.current_stream().cuda_stream,
         )
     if err:
         raise RuntimeError(f"sam_attn: kernel launch failed with CUDA error {err}")
@@ -87,4 +186,31 @@ def attention_with_rel_bias(
     return out
 
 
+def attention_with_rel_bias(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    bias_h: torch.Tensor, bias_w: torch.Tensor, h: int, w: int,
+) -> torch.Tensor:
+    """q (pre-scaled), k, v: (N, T, d); bias_h: (N, T, h); bias_w: (N, T, w)
+    with T = h·w in row-major (y, x) order. Returns the f32 (N, T, d)
+    softmax(q kᵀ + bias) v, where bias[i, j] = bias_h[i, j // w] + bias_w[i, j % w]."""
+    if q.device.type == "cpu":
+        return attention_with_rel_bias_plain(q, k, v, bias_h, bias_w, h, w)
+    return _launch(q, k, v, bias_h, bias_w, h, w, None)
+
+
 attention_with_rel_bias.launches = 0
+
+
+def attention_with_rel_bias_split(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    bias_h: torch.Tensor, bias_w: torch.Tensor, h: int, w: int, splits: int,
+) -> torch.Tensor:
+    """``attention_with_rel_bias`` with the keys split ``splits`` ways (fewer
+    where a split would be empty) instead of ``kv_splits``'s count. On the
+    CPU: the plain partials of ``split_bounds`` merged by
+    ``combine_splits_plain``."""
+    if q.device.type == "cpu":
+        parts = [attention_partial_plain(q, k, v, bias_h, bias_w, h, w, lo, hi)
+                 for lo, hi in split_bounds(q.shape[1], splits)]
+        return combine_splits_plain(*(torch.stack(x) for x in zip(*parts)))
+    return _launch(q, k, v, bias_h, bias_w, h, w, splits)

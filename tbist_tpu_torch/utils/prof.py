@@ -32,7 +32,7 @@ import torch
 
 # kernel-name substrings -> kind, first match wins
 _KINDS = (
-    ("K4 sam attention (sam_attn.cu)", ("sam_attn_kernel",)),
+    ("K4 sam attention (sam_attn.cu)", ("sam_attn_kernel", "sam_attn_combine_kernel")),
     ("K1 gram (gram.cu)", ("gram_fwd_kernel", "gram_reduce_kernel", "gram_bwd_kernel")),
     ("K3 relu-pool bwd (pool_bwd.cu)", ("pool_bwd_kernel",)),
     # cuDNN's FFT convolutions run complex (float2) GEMVs; its layout

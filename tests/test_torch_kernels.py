@@ -250,6 +250,64 @@ def test_sam_attn_plain_matches_pallas_in_interpret_mode():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
+@pytest.mark.parametrize(
+    "n,t,sms,splits",
+    [
+        (12, 4096, 132, 1),  # (a) the 1024² encoder: 768 blocks fill 132 SMs
+        (48, 4096, 132, 1),  # (b) the batch lane
+        (3, 960, 132, 5),  # (c) the ragged 24x40 grid: 45 blocks, 15 key tiles
+        (12, 256, 132, 4),  # (d) SAM at 256: 48 blocks, 4 key tiles
+        (1, 4096, 132, 5),
+        (1, 35, 132, 1),  # one key tile
+        (2, 960, 8, 1),
+        (2, 960, 114, 8),  # H100 PCIe
+    ],
+)
+def test_sam_attn_kv_splits(n, t, sms, splits):
+    assert sam_attn.kv_splits(n, t, sms) == splits
+    bounds = sam_attn.split_bounds(t, splits)
+    tiles = -(-t // sam_attn.KEY_TILE)
+    assert len(bounds) == splits <= tiles
+    # the splits cover the keys in order, each a whole number of tiles and none empty
+    assert bounds[0][0] == 0 and bounds[-1][1] == t
+    assert all(lo < hi and lo % sam_attn.KEY_TILE == 0 for lo, hi in bounds)
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    blocks = n * -(-t // sam_attn.QUERY_TILE)
+    if splits > 1:  # split only a grid that leaves SMs short, and give each SM a block
+        assert blocks < sam_attn.BLOCKS_PER_SM * sms <= blocks * splits * 2
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 5])
+def test_sam_attn_split_merge_matches_plain_and_pallas(splits):
+    from tbist_tpu.ops import pallas_sam_attn
+
+    n, h, w, d = 2, 14, 22, 16  # T = 308: a non-square grid, 5 key tiles, the last ragged
+    args = _sam_attn_inputs(17, n, h, w, d)
+    args[0] = args[0] * 3  # sharper rows: the splits' maxima differ
+    parts = [sam_attn.attention_partial_plain(*args, h, w, lo, hi)
+             for lo, hi in sam_attn.split_bounds(h * w, splits)]
+    assert len(parts) == splits
+    got = sam_attn.combine_splits_plain(*(torch.stack(x) for x in zip(*parts)))
+    with full_f32():
+        want = sam_attn.attention_with_rel_bias_plain(*args, h, w)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+    ref = pallas_sam_attn.attention_with_rel_bias(
+        *(jnp.asarray(a.numpy()) for a in args), h, w, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    kernels.reset_launch_counts()
+    split = sam_attn.attention_with_rel_bias_split(*args, h, w, splits)
+    assert kernels.launch_counts()["sam_attn"] == 0
+    torch.testing.assert_close(split, got, rtol=0, atol=0)
+
+
+def test_sam_attn_head_pad_and_shared_memory():
+    assert [sam_attn.head_pad(d) for d in (4, 8, 12, 16, 20, 64, 68, 128)] == \
+        [16, 16, 16, 16, 32, 64, 128, 128]
+    # the 1024² encoder: two blocks fit on an SM's 228 KB (1 KB reserved each)
+    assert 2 * (sam_attn.smem_bytes(64, 64, 64) + 1024) <= 228 * 1024
+    assert sam_attn.smem_bytes(128, 64, 64) <= sam_attn.MAX_SMEM
+
+
 def test_cpu_path_counts_no_launches():
     kernels.reset_launch_counts()
     x = torch.randn(1, 4, 4, 8, requires_grad=True)
@@ -349,20 +407,69 @@ def test_pool_kernels_match_plain_on_card(cuda, dtype, shape):
                                pool.pool_bwd_plain(pre, out, g, relu=True), rtol=0, atol=1e-6)
 
 
+def _assert_sam_attn_close(got, args, h, w):
+    with full_f32():
+        want = sam_attn.attention_with_rel_bias_plain(*args, h, w)
+    torch.cuda.synchronize()
+    # the online softmax sums the T keys in another order; 3xTF32 products
+    # are within a few f32 roundings of the f32 ones
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * want.abs().max().item())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,h,w,d", [(2, 24, 40, 64), (3, 5, 7, 16), (1, 64, 64, 64),
-                                     (2, 9, 9, 8), (1, 8, 8, 128)])
+                                     (2, 9, 9, 8), (1, 8, 8, 128), (1, 16, 16, 64),
+                                     # head dims padded to the MMA's k of 8
+                                     (2, 5, 7, 4), (2, 6, 10, 12)])
 def test_sam_attn_kernel_matches_plain_on_card(cuda, n, h, w, d):
     # ragged tails: 960, 35 and 81 tokens are not multiples of the 64-key tile
     args = _sam_attn_inputs(13, n, h, w, d, cuda)
     before = sam_attn.attention_with_rel_bias.launches
     got = sam_attn.attention_with_rel_bias(*args, h, w)
     assert sam_attn.attention_with_rel_bias.launches == before + 1
-    with full_f32():
-        want = sam_attn.attention_with_rel_bias_plain(*args, h, w)
-    torch.cuda.synchronize()
-    # the online softmax sums the T keys in another order
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * want.abs().max().item())
+    _assert_sam_attn_close(got, args, h, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("splits", [1, 2, 3, 5, 8, 15])
+def test_sam_attn_kernel_key_splits_on_card(cuda, splits):
+    n, h, w, d = 3, 24, 40, 64  # 15 key tiles, the last ragged
+    args = _sam_attn_inputs(15, n, h, w, d, cuda)
+    before = sam_attn.attention_with_rel_bias.launches
+    got = sam_attn.attention_with_rel_bias_split(*args, h, w, splits)
+    assert sam_attn.attention_with_rel_bias.launches == before + 1  # one, merge included
+    _assert_sam_attn_close(got, args, h, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("splits", [None, 1, 15])
+def test_sam_attn_kernel_sharp_logits_on_card(cuda, splits):
+    # logits of standard deviation 30, 30 times SAM's (q pre-scaled by d^-1/2): the
+    # running max jumps between key tiles and between splits. Quarter-step q
+    # and bias and integer k make every logit exact in f32 and in TF32 (no
+    # small part), so both sides see the same logits and near-ties do not
+    # magnify their roundings.
+    n, h, w, d = 3, 24, 40, 64
+    rng = np.random.default_rng(16)
+    t = h * w
+    args = [torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (
+        rng.integers(-12, 13, (n, t, d)) / 4, rng.integers(-3, 4, (n, t, d)),
+        rng.standard_normal((n, t, d)), rng.integers(-8, 9, (n, t, h)) / 4,
+        rng.integers(-8, 9, (n, t, w)) / 4)]
+    got = (sam_attn.attention_with_rel_bias(*args, h, w) if splits is None
+           else sam_attn.attention_with_rel_bias_split(*args, h, w, splits))
+    _assert_sam_attn_close(got, args, h, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,h,w,d", [(12, 64, 64, 64), (3, 24, 40, 64)])
+def test_sam_attn_kernel_repeat_bitwise_on_card(cuda, n, h, w, d):
+    args = _sam_attn_inputs(18, n, h, w, d, cuda)
+    t = h * w
+    assert (sam_attn.kv_splits(n, t, torch.cuda.get_device_properties(cuda).multi_processor_count)
+            > 1) == (t < 4096)  # the second shape goes through the merge
+    first = sam_attn.attention_with_rel_bias(*args, h, w)
+    assert torch.equal(sam_attn.attention_with_rel_bias(*args, h, w), first)
 
 
 @pytest.mark.gpu
@@ -378,3 +485,12 @@ def test_sam_attn_kernel_rejects_what_it_does_not_take(cuda):
     q6 = torch.zeros((2, 16, 6), device=cuda)
     with pytest.raises(ValueError, match="multiple of 4"):
         sam_attn.attention_with_rel_bias(q6, q6, q6, bh, bw, 4, 4)
+
+
+def test_sam_attn_ab_variants_remove_their_lines():
+    from tbist_tpu_torch.utils import attn_ab
+
+    variants = attn_ab._variants()
+    tree = variants["tree"]
+    assert tree.count("mma_tf32(") - variants["one_pass"].count("mma_tf32(") == 2
+    assert "0x1000u" in tree and "0x1000u" not in variants["no_split"]
