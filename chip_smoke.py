@@ -634,7 +634,6 @@ def main() -> int:
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
             "library_ms": s["library_ms"], "parity": "agree", "path": PATHS[kname],
             "work": work["sam" if kname == "sam_attn" else "gatys"],
-            "f32_simt_bound_ms": s.get("f32_simt_bound_ms"),  # K4's bound off the tensor cores
         })
     log(f"conv output channels-last at every style layer: {conv_cl}")
     log(smi)

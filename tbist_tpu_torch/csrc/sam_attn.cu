@@ -465,7 +465,10 @@ int launch(const float* q, const float* k, const float* v, const float* bh, cons
   const size_t bytes = smem_bytes<DK>(h, w);
   cudaError_t err = cudaFuncSetAttribute(sam_attn_kernel<DK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) {  // a grid whose bias rows overflow a block's shared memory
+    cudaGetLastError();  // clear it, so no later launch of the process reports it
+    return (int)err;
+  }
   dim3 grid((unsigned)((t + QT - 1) / QT), (unsigned)n, (unsigned)splits);
   sam_attn_kernel<DK><<<grid, THREADS, bytes, stream>>>(q, k, v, bh, bw, out, o_part, m_part,
                                                         l_part, (int)t, (int)d, (int)h, (int)w,

@@ -15,8 +15,10 @@ partial (O, m, l) to scratch and a second kernel merges them in split order
 (``combine_splits_plain`` is its plain version). A call counts as one launch
 either way.
 
-A CUDA tensor goes to the kernels (or raises); a CPU tensor takes the plain
-PyTorch version beside them. The wrapper counts its launches in
+A CUDA tensor goes to the kernels (or raises: a grid whose q tile's bias
+rows do not fit a block's shared memory is refused by the kernel's entry
+before any launch); a CPU tensor takes the plain PyTorch version beside
+them. The wrapper counts its launches in
 ``attention_with_rel_bias.launches``. Inference only: no backward.
 """
 
@@ -34,7 +36,6 @@ MAX_HEAD_DIM = 128
 QUERY_TILE = 64  # query rows per block of sam_attn.cu
 KEY_TILE = 64  # keys per step of its loop
 BLOCKS_PER_SM = 2  # the blocks an SM holds at d <= 64 (registers and shared memory)
-MAX_SMEM = 232448  # shared memory a Hopper block can opt in to
 LOG2E = 1.4426950408889634
 
 
@@ -54,22 +55,6 @@ def _sms(device_index: int) -> int:
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
-
-
-def head_pad(d: int) -> int:
-    """The kernel's padded head dim: the smallest of 16, 32, 64, 128 >= d."""
-    return next(p for p in (16, 32, 64, 128) if d <= p)
-
-
-def smem_bytes(d: int, h: int, w: int) -> int:
-    """A block's shared memory (``sam_attn.cu:smem_bytes``): two stages of K
-    and V at row strides of the padded d (+ 16 where it is a multiple of 32)
-    and d + 4, two tables of the tile's key rows and columns, and the q
-    tile's bias rows at strides h + 1, w + 1."""
-    dp = head_pad(d)
-    ldk = dp + 16 if dp % 32 == 0 else dp
-    return 4 * (2 * KEY_TILE * (ldk + dp + 4) + 4 * KEY_TILE
-                + QUERY_TILE * (h + 1) + QUERY_TILE * (w + 1))
 
 
 def tiles_per_split(t: int, splits: int) -> int:
@@ -154,10 +139,6 @@ def _check(q, k, v, bias_h, bias_w, h, w) -> None:
         raise ValueError(f"sam_attn: T = {t} is not h·w = {h}·{w}")
     if d % 4 or not 0 < d <= MAX_HEAD_DIM:
         raise ValueError(f"sam_attn: head dim {d} must be a multiple of 4 in (0, {MAX_HEAD_DIM}]")
-    if smem_bytes(d, h, w) > MAX_SMEM:
-        raise ValueError(f"sam_attn: a {h}x{w} grid at head dim {d} needs "
-                         f"{smem_bytes(d, h, w)} bytes of shared memory a block, "
-                         f"over the {MAX_SMEM} a block can have")
 
 
 def _launch(q, k, v, bias_h, bias_w, h: int, w: int, splits: Optional[int]) -> torch.Tensor:
@@ -180,6 +161,9 @@ def _launch(q, k, v, bias_h, bias_w, h: int, w: int, splits: Optional[int]) -> t
             n, t, d, h, w, splits, tiles_per_split(t, splits),
             torch.cuda.current_stream().cuda_stream,
         )
+    if err == 1:  # cudaErrorInvalidValue, from cudaFuncSetAttribute before any launch
+        raise RuntimeError(f"sam_attn: CUDA error 1: a {h}x{w} grid at head dim {d} needs "
+                           "more shared memory than a block can have; nothing was launched")
     if err:
         raise RuntimeError(f"sam_attn: kernel launch failed with CUDA error {err}")
     attention_with_rel_bias.launches += 1
@@ -199,18 +183,3 @@ def attention_with_rel_bias(
 
 
 attention_with_rel_bias.launches = 0
-
-
-def attention_with_rel_bias_split(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-    bias_h: torch.Tensor, bias_w: torch.Tensor, h: int, w: int, splits: int,
-) -> torch.Tensor:
-    """``attention_with_rel_bias`` with the keys split ``splits`` ways (fewer
-    where a split would be empty) instead of ``kv_splits``'s count. On the
-    CPU: the plain partials of ``split_bounds`` merged by
-    ``combine_splits_plain``."""
-    if q.device.type == "cpu":
-        parts = [attention_partial_plain(q, k, v, bias_h, bias_w, h, w, lo, hi)
-                 for lo, hi in split_bounds(q.shape[1], splits)]
-        return combine_splits_plain(*(torch.stack(x) for x in zip(*parts)))
-    return _launch(q, k, v, bias_h, bias_w, h, w, splits)

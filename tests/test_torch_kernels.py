@@ -277,12 +277,12 @@ def test_sam_attn_kv_splits(n, t, sms, splits):
         assert blocks < sam_attn.BLOCKS_PER_SM * sms <= blocks * splits * 2
 
 
-@pytest.mark.parametrize("splits", [1, 2, 3, 5])
-def test_sam_attn_split_merge_matches_plain_and_pallas(splits):
+def _check_split_merge(seed, n, h, w, d, splits):
+    """Plain partials over ``split_bounds``' key ranges, merged by
+    ``combine_splits_plain``, against the plain version and the Pallas kernel."""
     from tbist_tpu.ops import pallas_sam_attn
 
-    n, h, w, d = 2, 14, 22, 16  # T = 308: a non-square grid, 5 key tiles, the last ragged
-    args = _sam_attn_inputs(17, n, h, w, d)
+    args = _sam_attn_inputs(seed, n, h, w, d)
     args[0] = args[0] * 3  # sharper rows: the splits' maxima differ
     parts = [sam_attn.attention_partial_plain(*args, h, w, lo, hi)
              for lo, hi in sam_attn.split_bounds(h * w, splits)]
@@ -294,18 +294,20 @@ def test_sam_attn_split_merge_matches_plain_and_pallas(splits):
     ref = pallas_sam_attn.attention_with_rel_bias(
         *(jnp.asarray(a.numpy()) for a in args), h, w, interpret=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
-    kernels.reset_launch_counts()
-    split = sam_attn.attention_with_rel_bias_split(*args, h, w, splits)
-    assert kernels.launch_counts()["sam_attn"] == 0
-    torch.testing.assert_close(split, got, rtol=0, atol=0)
 
 
-def test_sam_attn_head_pad_and_shared_memory():
-    assert [sam_attn.head_pad(d) for d in (4, 8, 12, 16, 20, 64, 68, 128)] == \
-        [16, 16, 16, 16, 32, 64, 128, 128]
-    # the 1024² encoder: two blocks fit on an SM's 228 KB (1 KB reserved each)
-    assert 2 * (sam_attn.smem_bytes(64, 64, 64) + 1024) <= 228 * 1024
-    assert sam_attn.smem_bytes(128, 64, 64) <= sam_attn.MAX_SMEM
+@pytest.mark.parametrize("splits", [1, 2, 3, 5])
+def test_sam_attn_split_merge_matches_plain_and_pallas(splits):
+    # T = 308: a non-square grid, 5 key tiles, the last ragged
+    _check_split_merge(17, 2, 14, 22, 16, splits)
+
+
+@pytest.mark.parametrize("n,h,w,d,splits", [
+    (3, 5, 13, 4, 1), (3, 5, 13, 4, 2),  # T = 65: the second split holds one key
+    (1, 9, 15, 12, 1), (1, 9, 15, 12, 2), (1, 9, 15, 12, 3),  # T = 135, 3 key tiles
+])
+def test_sam_attn_split_merge_small_heads_match_plain_and_pallas(n, h, w, d, splits):
+    _check_split_merge(19, n, h, w, d, splits)
 
 
 def test_cpu_path_counts_no_launches():
@@ -436,7 +438,7 @@ def test_sam_attn_kernel_key_splits_on_card(cuda, splits):
     n, h, w, d = 3, 24, 40, 64  # 15 key tiles, the last ragged
     args = _sam_attn_inputs(15, n, h, w, d, cuda)
     before = sam_attn.attention_with_rel_bias.launches
-    got = sam_attn.attention_with_rel_bias_split(*args, h, w, splits)
+    got = sam_attn._launch(*args, h, w, splits)
     assert sam_attn.attention_with_rel_bias.launches == before + 1  # one, merge included
     _assert_sam_attn_close(got, args, h, w)
 
@@ -456,9 +458,31 @@ def test_sam_attn_kernel_sharp_logits_on_card(cuda, splits):
         rng.integers(-12, 13, (n, t, d)) / 4, rng.integers(-3, 4, (n, t, d)),
         rng.standard_normal((n, t, d)), rng.integers(-8, 9, (n, t, h)) / 4,
         rng.integers(-8, 9, (n, t, w)) / 4)]
-    got = (sam_attn.attention_with_rel_bias(*args, h, w) if splits is None
-           else sam_attn.attention_with_rel_bias_split(*args, h, w, splits))
-    _assert_sam_attn_close(got, args, h, w)
+    _assert_sam_attn_close(sam_attn._launch(*args, h, w, splits), args, h, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("splits", [None, 1, 15])
+def test_sam_attn_kernel_sharp_random_logits_on_card(cuda, splits):
+    # logits of standard deviation 30 from random f32 inputs, whose TF32
+    # small parts are not zero: against an f64 plain version, the 3xTF32
+    # kernel's error stays within a small multiple of the f32 plain version's
+    n, h, w, d = 3, 24, 40, 64
+    q, k, v, bh, bw = _sam_attn_inputs(20, n, h, w, d, cuda)
+    args = [q * (30 * d ** -0.5), k, v, bh, bw]
+    got = sam_attn._launch(*args, h, w, splits)
+    with full_f32():
+        plain = sam_attn.attention_with_rel_bias_plain(*args, h, w)
+    exact = sam_attn.attention_with_rel_bias_plain(*(a.double() for a in args), h, w)
+    err_kernel = float((got.double() - exact).abs().max())
+    err_plain = float((plain.double() - exact).abs().max())
+    diff = (got - plain).abs()
+    atol = 1e-5 * float(plain.abs().max())
+    print(f"sharp random logits, splits {splits}: max abs err against f64: kernel "
+          f"{err_kernel:.3e}, f32 plain {err_plain:.3e} (ratio {err_kernel / err_plain:.2f}); "
+          f"kernel against f32 plain {float(diff.max()):.3e}, within rtol 1e-4, atol "
+          f"{atol:.3e}: {bool(torch.all(diff <= atol + 1e-4 * plain.abs()))}")
+    assert err_kernel <= 4 * err_plain
 
 
 @pytest.mark.gpu
@@ -487,10 +511,14 @@ def test_sam_attn_kernel_rejects_what_it_does_not_take(cuda):
         sam_attn.attention_with_rel_bias(q6, q6, q6, bh, bw, 4, 4)
 
 
-def test_sam_attn_ab_variants_remove_their_lines():
-    from tbist_tpu_torch.utils import attn_ab
-
-    variants = attn_ab._variants()
-    tree = variants["tree"]
-    assert tree.count("mma_tf32(") - variants["one_pass"].count("mma_tf32(") == 2
-    assert "0x1000u" in tree and "0x1000u" not in variants["no_split"]
+@pytest.mark.gpu
+def test_sam_attn_kernel_refuses_grids_over_shared_memory(cuda):
+    # a 1x700 grid: the q tile's 64 rows of 701 bias_w columns overflow a block
+    args = _sam_attn_inputs(21, 1, 1, 700, 64, cuda)
+    before = sam_attn.attention_with_rel_bias.launches
+    with pytest.raises(RuntimeError, match="shared memory"):
+        sam_attn.attention_with_rel_bias(*args, 1, 700)
+    assert sam_attn.attention_with_rel_bias.launches == before
+    # the refusal leaves no CUDA error behind for the launches after it
+    args = _sam_attn_inputs(22, 2, 9, 9, 8, cuda)
+    _assert_sam_attn_close(sam_attn.attention_with_rel_bias(*args, 9, 9), args, 9, 9)

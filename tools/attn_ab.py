@@ -8,10 +8,13 @@ part removed, timed in turns in one process on one card.
   so the time it saves is the share of the splitting instructions.
 
 Both variants give wrong results (their errors are printed beside them);
-they exist only to apportion the kernel's time. Run on a machine with a
-CUDA card, from the root of a checkout::
+they exist only to apportion the kernel's time. A development script,
+outside the package and untested: the variants are string edits of the
+source, so it refuses to run once ``sam_attn.cu`` no longer has the lines
+it removes. Run on a machine with a CUDA card, from the root of a
+checkout::
 
-    python -m tbist_tpu_torch.utils.attn_ab
+    python tools/attn_ab.py
 
 It prints one JSON line: per K4 shape of ``chip_smoke.py``, the ms and max
 abs error of each variant in the order tree, one_pass, no_split, tree.
@@ -27,9 +30,12 @@ import sys
 
 import torch
 
-from tbist_tpu_torch.kernels import _build, sam_attn
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
 
-_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke  # noqa: E402
+from tbist_tpu_torch.kernels import _build, sam_attn  # noqa: E402
+
 _OUT = os.path.join(_ROOT, "build", "attn_ab")
 _MMA_SMALL = "  mma_tf32(cs, as, bb0, bb1);\n  mma_tf32(cs, ab, bs0, bs1);\n"
 _SPLIT = ("  big = __float_as_uint(x) + 0x1000u;\n"
@@ -71,9 +77,6 @@ def _build_all(variants: dict) -> dict:
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("attn_ab: needs a CUDA device")
-    sys.path.insert(0, _ROOT)
-    import chip_smoke
-
     libs = _build_all(_variants())
     tree_lib = sam_attn._lib
     device = torch.device("cuda")
