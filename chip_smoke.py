@@ -24,7 +24,16 @@ Phases, each fatal:
    seeded weights (a 480x640 image, one box), then the batch lane
    (``encode_uint8_batch`` + ``masks_from_embedding_batch``, 4 frames);
 7. mask ops: ``ops.masks.composite_by_mask`` on the card against the CPU,
-   with the SAM path's mask.
+   with the SAM path's mask;
+8. text-location path: GroundingDINO SwinT-OGC at full width on seeded
+   weights (a vocab built here) chained with the SAM path's ViT-B: DINO on
+   the card against the CPU at 256x320; ``models.dino_sam.extract_mask`` on
+   the SAM path's 480x640 image and the prompt "boat" (800x1056 detection,
+   1024² segmentation), timed, with its host syncs counted; the 4-frame
+   batch lane against single frames; ``api.apply_image`` with the location
+   mask around 400 Gatys steps (DINO → SAM → Gatys → ``composite_by_mask``);
+   and ``cli.main --text-location``, which without checkpoints takes the
+   border-prior fallback.
 
 Every launch counter is zeroed just before each path and read just after.
 It prints one JSON line per kernel, shape and dtype, then the card's
@@ -63,6 +72,11 @@ SAM_ITERS = 10
 # the JAX package's SAM benchmark input (benchmarks/suite.py:56-64)
 SAM_IMAGE_HW = (480, 640)
 SAM_BOX = [100.0, 100.0, 400.0, 380.0]
+TEXT_PROMPT = "boat"
+TEXT_ITERS = 5
+# the card-vs-CPU check runs DINO at full width at a reduced detection size
+DINO_CHECK_HW = (256, 320)
+MASK_TOL = 1e-3  # share of a mask's pixels two f32 computations may disagree on
 SPIN_HZ = 2e9  # cycles per second of torch.cuda._sleep: at most the H100's 1.98 GHz SM clock
 
 
@@ -427,9 +441,8 @@ def run_main_path(size: int, steps: int):
     return counts, metrics, peak
 
 
-def _expect_launches(counts, sam_attn: int) -> None:
-    want = {name: 0 for name in counts}
-    want["sam_attn"] = sam_attn
+def _expect_launches(counts, **launches: int) -> None:
+    want = {name: launches.get(name, 0) for name in counts}
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
 
@@ -466,7 +479,7 @@ def run_sam_path(device, smi: str):
         times.append((time.perf_counter() - t0) * 1e3)
     counts = kernels.launch_counts()
     calls = 2 + SAM_ITERS
-    _expect_launches(counts, per_call * calls)
+    _expect_launches(counts, sam_attn=per_call * calls)
     launches = counts["sam_attn"]
     peak = torch.cuda.max_memory_allocated()
     if mask.shape != (1, h, w) or mask.dtype != np.bool_:
@@ -503,7 +516,7 @@ def run_sam_path(device, smi: str):
     batch = batch.cpu().numpy()
     batch_ms = (time.perf_counter() - t0) * 1e3
     counts = kernels.launch_counts()
-    _expect_launches(counts, per_call)
+    _expect_launches(counts, sam_attn=per_call)
     launches += counts["sam_attn"]
     if batch.shape != (4, h, w) or batch.dtype != np.bool_:
         raise AssertionError(f"batch masks {batch.shape} {batch.dtype}")
@@ -527,7 +540,7 @@ def run_sam_path(device, smi: str):
         raise AssertionError(f"batch frames differ from the single path: {frame_diff} pixels")
     if bool(empty.any()):
         raise AssertionError("a frame with no valid box is not all False")
-    return launches, metrics, mask[0]
+    return launches, metrics, mask[0], params
 
 
 def check_mask_ops(device, mask) -> None:
@@ -550,6 +563,275 @@ def check_mask_ops(device, mask) -> None:
         raise AssertionError("composite_by_mask: card and CPU disagree")
 
 
+def _text_vocab():
+    """A vocab built here (no bert-base-uncased vocab is in the repository):
+    [CLS], [SEP], '.' and '?' at bert-base-uncased's ids, so that the
+    sub-sentence masks (``models.dino.SPECIAL_TOKEN_IDS``) act as with the
+    real vocab; the prompt's word at a free id below 30522."""
+    return {"[PAD]": 0, "[UNK]": 100, "[CLS]": 101, "[SEP]": 102, ".": 1012, "?": 1029,
+            TEXT_PROMPT: 4049}
+
+
+def _keep_masks(logits: "np.ndarray", n_tokens: int):
+    """Per query: DINO's two thresholds as ``dino_sam`` applies them (box on
+    the best token, text on tokens 1..min(T, 255)), and whether any score
+    lies within 1e-4 of the threshold it meets."""
+    import numpy as np
+
+    from tbist_tpu_torch.models import dino_sam
+
+    probs = 1.0 / (1.0 + np.exp(-logits.astype(np.float64)))
+    best, text = probs.max(1), probs[:, 1:min(n_tokens, 255)]
+    keep = (best > dino_sam.BOX_THRESHOLD) & (text > dino_sam.TEXT_THRESHOLD).any(1)
+    near = ((np.abs(best - dino_sam.BOX_THRESHOLD) < 1e-4)
+            | (np.abs(text - dino_sam.TEXT_THRESHOLD) < 1e-4).any(1))
+    return keep, near
+
+
+def check_dino_agreement(device, params_cpu, vocab) -> None:
+    """Phase 8, first: DINO at full SwinT-OGC width on the card against the
+    CPU, at DINO_CHECK_HW, on the SAM path's image."""
+    import numpy as np
+    import torch
+
+    from tbist_tpu_torch.models import dino_sam
+    from tbist_tpu_torch.weights import dino_convert
+
+    h, w = SAM_IMAGE_HW
+    img = torch.from_numpy((np.random.default_rng(0).random((h, w, 3)) * 255).astype(np.uint8))
+    outs = {}
+    for dev in (device, torch.device("cpu")):
+        params = dino_convert.to_device(params_cpu, dev) if dev.type == "cuda" else params_cpu
+        t0 = time.perf_counter()
+        ids, out = dino_sam._detect_dispatch(params, img.to(dev), TEXT_PROMPT, vocab,
+                                             det_hw=DINO_CHECK_HW)
+        outs[dev.type] = {k: v.cpu().numpy()[0] for k, v in out.items()}
+        outs[dev.type]["seconds"] = time.perf_counter() - t0
+        del params
+    dino_sam.clear_text_feature_cache()
+    gpu, cpu = outs[device.type], outs["cpu"]
+    same = gpu["topk_index"] == cpu["topk_index"]
+
+    def rel(key):
+        a, b = gpu[key][same], cpu[key][same]
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    errs = {k: rel(k) for k in ("topk_scores", "pred_logits", "pred_boxes")}
+    keep_g, near_g = _keep_masks(gpu["pred_logits"], len(ids))
+    keep_c, near_c = _keep_masks(cpu["pred_logits"], len(ids))
+    near = near_g | near_c
+    differ = int(((keep_g != keep_c) & ~near & same).sum())
+    log(json.dumps({"agreement": f"DINO card vs cpu, full SwinT-OGC width, {DINO_CHECK_HW}",
+                    "max_rel_err": errs, "queries": int(same.size),
+                    "queries_selecting_another_token": int((~same).sum()),
+                    "kept_card": int(keep_g.sum()), "kept_cpu": int(keep_c.sum()),
+                    "kept_differing_off_threshold": differ,
+                    "scores_within_1e-4_of_a_threshold": int(near.sum()),
+                    "cpu_seconds": cpu["seconds"]}))
+    if not (max(errs.values()) <= 1e-3 and same.mean() >= 0.99 and differ == 0):
+        raise AssertionError("DINO card and CPU runs disagree")
+
+
+def run_text_location_path(device, smi: str, sam_params):
+    """Phase 8: the text→mask chain at full width on seeded weights.
+    Returns ({kernel: launches over the phase}, metrics)."""
+    import warnings
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from tbist_tpu_torch import api, cli, kernels
+    from tbist_tpu_torch.compose.pipeline import ModelRegistry
+    from tbist_tpu_torch.models import dino_sam, sam
+    from tbist_tpu_torch.utils.config import EffectRequest, GatysConfig, TextEffectConfig
+    from tbist_tpu_torch.utils.logging import RunMetrics
+    from tbist_tpu_torch.weights import dino_convert
+    from tbist_tpu_torch.weights import vgg as vgg_weights
+
+    per_call = len(sam.BASE.global_layers)
+    vocab = _text_vocab()
+    t0 = time.perf_counter()
+    params_cpu = dino_convert.init_params(torch.Generator().manual_seed(0))
+    n_params = sum(t.numel() for t in _leaves(params_cpu))
+    log(f"DINO weights: seeded SwinT-OGC (init_params, torch.Generator seed 0), {n_params} "
+        f"parameters in {time.perf_counter() - t0:.1f}s; no checkpoint and no BERT vocab in "
+        f"the repo: vocab built here")
+    check_dino_agreement(device, params_cpu, vocab)
+    dino = dino_convert.to_device(params_cpu, device)
+    del params_cpu
+    total = {name: 0 for name in kernels.launch_counts()}
+
+    def tally(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    # extract_mask at full size: 2 warm-up calls, then TEXT_ITERS timed by the
+    # host clock, each ending in the mask's read-back
+    h, w = SAM_IMAGE_HW
+    img = (np.random.default_rng(0).random((h, w, 3)) * 255).astype(np.uint8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    for _ in range(2):
+        dino_sam.extract_mask(dino, sam_params, img, TEXT_PROMPT, vocab=vocab).cpu()
+    times = []
+    for _ in range(TEXT_ITERS):
+        t0 = time.perf_counter()
+        mask = dino_sam.extract_mask(dino, sam_params, img, TEXT_PROMPT, vocab=vocab).cpu()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = kernels.launch_counts()
+    _expect_launches(counts, sam_attn=per_call * (2 + TEXT_ITERS))
+    tally(counts)
+    peak = torch.cuda.max_memory_allocated()
+    if mask.shape != (h, w) or mask.dtype != torch.bool:
+        raise AssertionError(f"mask {tuple(mask.shape)} {mask.dtype}, expected ({h}, {w}) bool")
+
+    # DINO alone (CUDA events), the boxes kept, and the host syncs from the
+    # dispatch to the read-back (sync debug mode warns at each)
+    img_dev = torch.from_numpy(img).to(device)
+    det_hw = dino_sam._detection_size(h, w)
+    dino_ms = []
+    for _ in range(TEXT_ITERS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        ids, out = dino_sam._detect_dispatch(dino, img_dev, TEXT_PROMPT, vocab)
+        end.record()
+        end.synchronize()
+        dino_ms.append(start.elapsed_time(end))
+    boxes, phrases = dino_sam._detect_collect(ids, out, vocab)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("warn")
+    syncs = {}
+    try:
+        # each window's syncs, as the lines that made them (the warning names
+        # the innermost Python frame: the call of the op that synchronized)
+        def window(name, fn):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                t0 = time.perf_counter()
+                out = fn()
+                ms = (time.perf_counter() - t0) * 1e3
+            syncs[name] = [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
+                           if "called a synchronizing CUDA operation" in str(w.message)]
+            return out, ms
+
+        (ids, out), dispatch_ms = window(
+            "dino_dispatch", lambda: dino_sam._detect_dispatch(dino, img_dev, TEXT_PROMPT, vocab))
+        _, encoder_ms = window("sam_encoder_queue",
+                               lambda: sam.encode_uint8(sam_params, sam.BASE, img_dev))
+        window("collect", lambda: dino_sam._detect_collect(ids, out, vocab))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    n_dino = len(syncs["dino_dispatch"])
+    counts = kernels.launch_counts()
+    _expect_launches(counts, sam_attn=per_call)
+    tally(counts)
+    metrics = {
+        "text_mask_ms": float(np.median(times)), "text_mask_ms_all": times,
+        "dino_ms": float(np.median(dino_ms)), "dino_ms_all": dino_ms,
+        "detection_hw": list(det_hw), "boxes_kept": int(boxes.shape[0]),
+        "phrases_example": phrases[:2], "max_memory_allocated": peak,
+        "mask_share_true": float(mask.float().mean()),
+        "host_syncs": {k: len(v) for k, v in syncs.items()}, "host_sync_sites": syncs,
+        "host_ms": {"dino_dispatch": dispatch_ms, "sam_encoder_queue": encoder_ms},
+        "card": smi,
+    }
+    log(json.dumps({"text_location_path": "extract_mask, seeded SwinT-OGC + ViT-B, 480x640, "
+                    f"prompt {TEXT_PROMPT!r}", **metrics}))
+    if n_dino:
+        raise AssertionError(f"the DINO dispatch waited for the card {n_dino} times")
+
+    # the batch lane: 4 frames (the first is the single image), one DINO and
+    # one encoder call; each frame's mask is held to extract_mask on it. The
+    # batch's matmuls have other shapes than a single frame's, so cuBLAS may
+    # round differently, and a mask logit within rounding of 0 can flip: at
+    # most MASK_TOL of a frame's pixels may differ (the CPU tests' limit)
+    rng = np.random.default_rng(1)
+    frames = np.stack([img] + [(rng.random((h, w, 3)) * 255).astype(np.uint8)
+                               for _ in range(3)])
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    batch = dino_sam.extract_masks_batch(dino, sam_params, frames, TEXT_PROMPT, vocab=vocab)
+    batch = batch.cpu()
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    counts = kernels.launch_counts()
+    _expect_launches(counts, sam_attn=per_call)
+    tally(counts)
+    kernels.reset_launch_counts()
+    frame_diff = [int((dino_sam.extract_mask(dino, sam_params, f, TEXT_PROMPT, vocab=vocab)
+                       .cpu() != batch[i]).sum()) for i, f in enumerate(frames)]
+    counts = kernels.launch_counts()
+    _expect_launches(counts, sam_attn=per_call * len(frames))
+    tally(counts)
+    # where a difference comes from: DINO's outputs for frame 0, batch vs single
+    _, single = dino_sam._detect_dispatch(dino, img_dev, TEXT_PROMPT, vocab)
+    _, batched = dino_sam._detect_dispatch_batch(dino, torch.from_numpy(frames).to(device),
+                                                 TEXT_PROMPT, vocab)
+    dino_diff = {k: float((single[k][0] - batched[k][0]).abs().max())
+                 for k in ("pred_logits", "pred_boxes")}
+    log(json.dumps({"text_location_batch": "extract_masks_batch, 4 frames", "ms": batch_ms,
+                    "frame_pixels_differing_from_single": frame_diff,
+                    "dino_frame0_batch_vs_single_max_abs": dino_diff,
+                    "mask_share_true": [float(m.float().mean()) for m in batch]}))
+    if batch.shape != (4, h, w) or max(frame_diff) > MASK_TOL * h * w:
+        raise AssertionError(f"batch masks {tuple(batch.shape)} differ from single frames: "
+                             f"{frame_diff} pixels")
+
+    # through the pipeline: DINO -> SAM (K4) -> Gatys (K1, K3) -> composite
+    boat = os.path.join(ROOT, "data/content_imgs/boat.jpg")
+    starry = os.path.join(ROOT, "data/style_imgs/starry_night.jpg")
+    reg = ModelRegistry(vgg_params=vgg_weights.get_params(device=device), device=device,
+                        mask_extractor=dino_sam.make_mask_extractor(dino, sam_params, vocab))
+    req = EffectRequest(text=TextEffectConfig(location_prompt=TEXT_PROMPT), style_transfer=True,
+                        gatys=GatysConfig(num_steps=STEPS))
+    run = RunMetrics()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = api.apply_image(boat, req, style_image=starry, registry=reg, metrics=run,
+                          device=device)
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    n_style = len(STYLE_LAYERS)
+    _expect_launches(counts, sam_attn=per_call, gram_fwd=n_style * STEPS + n_style,
+                     gram_bwd=n_style * STEPS, relu_pool_bwd=len(POOL_CHANNELS) * STEPS)
+    tally(counts)
+    arr = np.asarray(out)
+    log(json.dumps({"text_location_pipeline": f"apply_image, location mask + {STEPS} Gatys "
+                    f"steps at {SIZE}px", "seconds": seconds, "image": list(arr.shape),
+                    "iters_per_sec": run.extra["iters_per_sec"], "launches": counts,
+                    "degraded": run.degraded}))
+    if arr.shape != (SIZE, SIZE, 3) or run.degraded:
+        raise AssertionError(f"pipeline output {arr.shape}, degraded {run.degraded}")
+
+    # through the CLI: without checkpoints, the border-prior fallback's mask
+    out_path = os.path.join(ROOT, "build", "smoke_text_location.png")
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    run = RunMetrics()
+    kernels.reset_launch_counts()
+    rc = cli.main(["--image", boat, "--text-location", TEXT_PROMPT, "--out", out_path,
+                   "--device", "cuda"], metrics=run)
+    counts = kernels.launch_counts()
+    _expect_launches(counts)
+    shape = np.asarray(Image.open(out_path)).shape
+    log(json.dumps({"text_location_cli": "cli --text-location", "rc": rc, "image": list(shape),
+                    "degraded": run.degraded}))
+    if rc != 0 or "mask_fallback" not in run.degraded or shape != (SIZE, SIZE, 3):
+        raise AssertionError(f"cli --text-location: rc {rc}, degraded {run.degraded}")
+    return total, metrics
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
 SOURCES = {
     "gram_fwd": ("tbist_tpu_torch/csrc/gram.cu", "tbist_tpu/ops/pallas_gram.py:59"),
     "gram_bwd": ("tbist_tpu_torch/csrc/gram.cu", "tbist_tpu/ops/pallas_gram.py:87"),
@@ -558,8 +840,11 @@ SOURCES = {
                       "tbist_tpu/ops/pallas_relu_pool.py:75"),
     "sam_attn": ("tbist_tpu_torch/csrc/sam_attn.cu", "tbist_tpu/ops/pallas_sam_attn.py:57"),
 }
-PATHS = {"gram_fwd": "gatys", "gram_bwd": "gatys", "pool_bwd": "none",
-         "relu_pool_bwd": "gatys", "sam_attn": "sam"}
+# the paths each kernel runs on (text-location: K4 in SAM's encoder behind
+# DINO, K1 and K3 where stage 4 runs under the location mask)
+PATHS = {"gram_fwd": "gatys, text-location", "gram_bwd": "gatys, text-location",
+         "pool_bwd": "none", "relu_pool_bwd": "gatys, text-location",
+         "sam_attn": "sam, text-location"}
 
 
 def main() -> int:
@@ -613,7 +898,7 @@ def main() -> int:
             f"{STEPS} steps, max_memory_allocated {peak / 2**30:.2f} GiB, on {smi}")
 
     with phase("sam path"):
-        counts["sam_attn"], sam_metrics, mask = run_sam_path(device, smi)
+        counts["sam_attn"], sam_metrics, mask, sam_params = run_sam_path(device, smi)
         log(f"sam path: predict_boxes {sam_metrics['sam_predict_ms']:.2f} ms (median), "
             f"encoder {sam_metrics['encoder_ms']:.2f} ms, max_memory_allocated "
             f"{sam_metrics['max_memory_allocated']} bytes, on {smi}")
@@ -621,6 +906,19 @@ def main() -> int:
     with phase("mask ops"):
         check_mask_ops(device, mask)
 
+    with phase("text-location path"):
+        text_counts, text_metrics = run_text_location_path(device, smi, sam_params)
+        log(f"text-location path: extract_mask {text_metrics['text_mask_ms']:.2f} ms (median), "
+            f"dino {text_metrics['dino_ms']:.2f} ms, {text_metrics['boxes_kept']} boxes kept, "
+            f"max_memory_allocated {text_metrics['max_memory_allocated']} bytes, host syncs "
+            f"{text_metrics['host_syncs']}, on {smi}")
+    del sam_params
+
+    launches_by_path = {
+        "gatys": {k: v for k, v in counts.items() if k != "sam_attn"},
+        "sam": {"sam_attn": counts["sam_attn"]},
+        "text-location": text_counts,
+    }
     work = {
         "gatys": "one step of the Gatys path at 512px, f32: the sum over its shapes",
         "sam": "one launch at the 1024² encoder (N 12, T 4096, d 64), f32 as 3xTF32",
@@ -628,9 +926,11 @@ def main() -> int:
     rows = []
     for kname, (source, replaces) in SOURCES.items():
         s = summary[kname]
+        by_path = {p: c[kname] for p, c in launches_by_path.items() if c.get(kname)}
         rows.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": counts[kname], "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
             "library_ms": s["library_ms"], "parity": "agree", "path": PATHS[kname],
             "work": work["sam" if kname == "sam_attn" else "gatys"],

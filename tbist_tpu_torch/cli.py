@@ -7,6 +7,10 @@ Example:
 
 It takes the JAX CLI's flags. Flags of effects the port does not run yet
 stop the CLI with a message naming the ROADMAP item and exit code 2.
+``--aot-cache`` is accepted and does nothing (the eager port compiles
+nothing to cache; ROADMAP item 32), and ``--resume-dir`` stops the CLI only
+where the JAX CLI would use it: with ``--style-transfer``, ``--image`` and
+``--style`` (item 9).
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import sys
 from typing import Optional
 
 from tbist_tpu_torch import api
-from tbist_tpu_torch.utils.config import EffectRequest, GatysConfig
+from tbist_tpu_torch.utils.config import EffectRequest, GatysConfig, TextEffectConfig
 from tbist_tpu_torch.utils.logging import RunMetrics, logger
 
 # (argparse dest, flag, the ROADMAP Queue 1 item that ports it)
@@ -24,15 +28,12 @@ _UNPORTED_FLAGS = (
     ("video", "--video", "slice 7, items 28-30"),
     ("grayscale", "--grayscale", "item 11"),
     ("text_style", "--text-style", "items 17-19"),
-    ("text_location", "--text-location", "items 20, 21, 23; SAM is ported"),
     ("text_texture", "--text-texture", "item 24"),
     ("pixel_art", "--pixel-art", "item 13"),
     ("pixel_from_image", "--pixel-from-image", "item 13"),
     ("color_palette", "--color-palette", "item 11"),
     ("depth", "--depth", "items 25-27"),
     ("channel_attention", "--channel-attention", "item 8"),
-    ("resume_dir", "--resume-dir", "item 9"),
-    ("aot_cache", "--aot-cache", "item 32"),
 )
 
 
@@ -83,7 +84,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 VGG trunk (Gram matrices accumulate in f32)")
     p.add_argument("--aot-cache", action="store_true",
-                   help="serialized-executable cache of the JAX package")
+                   help="accepted for the JAX CLI's sake; the port has no "
+                   "executable cache yet and ignores it")
     p.add_argument("--resume-dir",
                    help="checkpoint dir: resumable optimization in segments")
     p.add_argument("--segment-steps", type=int, default=100,
@@ -100,7 +102,20 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def request_from_args(args) -> EffectRequest:
+    text = None
+    if args.text_style or args.text_location or args.text_texture:
+        text = TextEffectConfig(
+            style_prompt=args.text_style,
+            location_prompt=args.text_location,
+            texture_prompt=args.text_texture,
+            mask_crop=tuple(args.mask_crop),
+            mask_square=args.mask_square,
+            mask_resize=tuple(args.mask_resize or ()),
+            detection_size=args.detection_size,
+            segmentation_size=args.segmentation_size,
+        )
     return EffectRequest(
+        text=text,
         style_transfer=args.style_transfer,
         style_mixing=args.mixing,
         gatys=GatysConfig(
@@ -121,6 +136,11 @@ def main(argv=None, metrics: Optional[RunMetrics] = None) -> int:
     for dest, flag, item in _UNPORTED_FLAGS:
         if getattr(args, dest):
             parser.error(f"{flag} is not ported to the GPU yet (ROADMAP Queue 1, {item})")
+    if args.resume_dir and args.style_transfer and args.image and args.style:
+        parser.error("--resume-dir is not ported to the GPU yet (ROADMAP Queue 1, item 9)")
+    if args.aot_cache:
+        logger.info("--aot-cache: the port has no executable cache yet (ROADMAP Queue 1, "
+                    "item 32); ignored")
     req = request_from_args(args)
     metrics = metrics if metrics is not None else RunMetrics()
     out = api.apply_image(

@@ -62,6 +62,7 @@ class SamConfig(NamedTuple):
 
 BASE = SamConfig()
 
+DECODE_CHUNK = 64  # boxes per decoder call (see _mask_chunks)
 PIXEL_MEAN = (123.675, 116.28, 103.53)
 PIXEL_STD = (58.395, 57.12, 57.375)
 
@@ -370,12 +371,37 @@ def _logits_to_masks(logits: torch.Tensor, cfg: SamConfig, nh: int, nw: int, h: 
     return full[..., 0] > 0.0
 
 
+def _mask_chunks(params: Params, cfg: SamConfig, emb, scale, nh, nw, h, w, boxes_xyxy):
+    """Yield the (M, H, W) bool masks of pixel-xyxy boxes on the device,
+    DECODE_CHUNK boxes at a time. A text prompt on seeded weights keeps
+    hundreds of boxes, each tens of MiB of decoder activations, so the
+    boxes are decoded in chunks; every caller chunks the same way, so a
+    box's mask does not depend on which function asked for it."""
+    boxes01 = _boxes01(boxes_xyxy, scale, cfg, emb.device)
+    for i in range(0, boxes01.shape[0], DECODE_CHUNK):
+        logits = decode_masks(params, cfg, emb, boxes01[i : i + DECODE_CHUNK])
+        yield _logits_to_masks(logits, cfg, nh, nw, h, w)
+
+
 def masks_from_embedding(params: Params, cfg: SamConfig, emb, scale, nh, nw, h, w,
                          boxes_xyxy) -> np.ndarray:
     """Decode pixel-xyxy boxes against a precomputed embedding -> host
     (N, H, W) bool."""
-    logits = decode_masks(params, cfg, emb, _boxes01(boxes_xyxy, scale, cfg, emb.device))
-    return _logits_to_masks(logits, cfg, nh, nw, h, w).cpu().numpy()
+    chunks = list(_mask_chunks(params, cfg, emb, scale, nh, nw, h, w, boxes_xyxy))
+    if not chunks:
+        return np.zeros((0, h, w), bool)
+    return torch.cat(chunks).cpu().numpy()
+
+
+def mask_union_from_embedding(params: Params, cfg: SamConfig, emb, scale, nh, nw, h, w,
+                              boxes_xyxy) -> torch.Tensor:
+    """The union of the boxes' masks, (H, W) bool on the device (not
+    fetched): ``masks_from_embedding(...).any(0)`` without reading back the
+    per-box masks."""
+    out = torch.zeros((h, w), dtype=torch.bool, device=emb.device)
+    for m in _mask_chunks(params, cfg, emb, scale, nh, nw, h, w, boxes_xyxy):
+        out |= m.any(0)
+    return out
 
 
 def masks_from_embedding_batch(params: Params, cfg: SamConfig, embs, scale, nh, nw, h, w,
@@ -384,15 +410,14 @@ def masks_from_embedding_batch(params: Params, cfg: SamConfig, embs, scale, nh, 
     per frame, with ``valid`` (B, K) marking the real ones, against (B, ...)
     embeddings -> (B, H, W) bool on the device (not fetched). Per frame this
     is the union of the valid boxes' masks; a frame with no valid box is all
-    False."""
-    b, k = np.asarray(valid).shape
-    boxes01 = _boxes01(boxes_xyxy, scale, cfg, embs.device).reshape(b * k, 4)
-    valid = torch.as_tensor(np.asarray(valid, bool), device=embs.device)
-    with torch.no_grad(), full_f32():
-        emb = embs.float()[:, None].expand(b, k, *embs.shape[1:]).reshape(b * k, *embs.shape[1:])
-        logits = _decode(params, cfg, emb, boxes01)
-        m = _logits_to_masks(logits, cfg, nh, nw, h, w).reshape(b, k, h, w)
-        return (m & valid[:, :, None, None]).any(1)
+    False. Only the valid boxes are decoded, frame by frame in the chunks of
+    ``mask_union_from_embedding``, so a frame's mask is the one the single
+    path gives for the same embedding."""
+    boxes_xyxy, valid = np.asarray(boxes_xyxy), np.asarray(valid, bool)
+    return torch.stack([
+        mask_union_from_embedding(params, cfg, embs[i : i + 1], scale, nh, nw, h, w,
+                                  boxes_xyxy[i][valid[i]])
+        for i in range(valid.shape[0])])
 
 
 def predict_boxes(params: Params, cfg: SamConfig, image: np.ndarray,

@@ -6,16 +6,23 @@ GPU kernel time by kind and measures how much of the traced window the
 device was busy.
 
 Run as a script on a machine with a CUDA card to profile a path: Gatys
-L-BFGS on boat.jpg x starry_night.jpg, or SAM ViT-B ``predict_boxes`` at
-1024² on seeded weights (a 480x640 image, one box)::
+L-BFGS on boat.jpg x starry_night.jpg, SAM ViT-B ``predict_boxes`` at 1024²
+on seeded weights (a 480x640 image, one box), or the text-location chain
+``models.dino_sam.extract_mask`` (seeded GroundingDINO SwinT-OGC and SAM
+ViT-B, the same image, the prompt "boat")::
 
     python -m tbist_tpu_torch.utils.prof --size 512 --steps 30
     python -m tbist_tpu_torch.utils.prof --path sam --steps 10
+    python -m tbist_tpu_torch.utils.prof --path text-location --steps 5
 
 It prints one JSON line: device time by kind and of the top kernels per
-step (per call for SAM), CUDA calls per step that can block the host, the
-device's busy share of the profiled window (the profiler's own host cost
-included), and the rate of an unprofiled run of the same length.
+step (per call for SAM and text-location), CUDA calls per step that can
+block the host, the device's busy share of the profiled window (the
+profiler's own host cost included), and the rate of an unprofiled run of
+the same length. For text-location it adds each layer's time per call
+(CUDA events around the Swin backbone, the fusion layers, the encoder's and
+the decoder's deformable attention, the whole DINO forward, SAM's encoder
+and its decode), BERT's once per prompt, and the host's thresholding.
 """
 
 from __future__ import annotations
@@ -35,6 +42,9 @@ _KINDS = (
     ("K4 sam attention (sam_attn.cu)", ("sam_attn_kernel", "sam_attn_combine_kernel")),
     ("K1 gram (gram.cu)", ("gram_fwd_kernel", "gram_reduce_kernel", "gram_bwd_kernel")),
     ("K3 relu-pool bwd (pool_bwd.cu)", ("pool_bwd_kernel",)),
+    # DINO's deformable attention samples its value maps with F.grid_sample
+    ("deformable sampling (grid_sample)", ("grid_sampler",)),
+    ("sort (query selection)", ("RadixSort", "radixSort", "sortKeyValue", "SortKV")),
     # cuDNN's FFT convolutions run complex (float2) GEMVs; its layout
     # transposes (nchwToNhwc, nhwcToNchw) belong to the convolutions too
     ("convolution (cuDNN)", ("conv", "cudnn", "implicit", "fprop", "dgrad", "winograd",
@@ -152,17 +162,114 @@ def _sam(steps: int, trace_path: Optional[str]) -> Dict:
             **_profile(run, steps, trace_path)}
 
 
+@contextlib.contextmanager
+def _layer_spans(targets):
+    """Wrap module functions, (module, name, label or label(*args)), so that
+    each call records CUDA events before and after it; yields {label: [(start,
+    end), ...]}. A span is the stream's time from the call's first kernel to
+    its last: kernels, and any wait for the host's launches between them."""
+    spans: Dict[str, list] = {}
+    saved = []
+    for mod, name, label in targets:
+        fn = getattr(mod, name)
+
+        def wrapped(*a, _fn=fn, _label=label, **k):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = _fn(*a, **k)
+            end.record()
+            spans.setdefault(_label(*a) if callable(_label) else _label, []).append((start, end))
+            return out
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, wrapped)
+    try:
+        yield spans
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _text_location(steps: int, trace_path: Optional[str]) -> Dict:
+    import numpy as np
+
+    from tbist_tpu_torch.models import dino, dino_sam, sam, swin
+    from tbist_tpu_torch.weights import dino_convert
+    from tbist_tpu_torch.weights import sam as sam_weights
+
+    dev = torch.device("cuda")
+    dparams = dino_convert.init_params(torch.Generator().manual_seed(0), device=dev)
+    sparams = sam_weights.init_params(torch.Generator().manual_seed(0), sam.BASE, device=dev)
+    # no bert-base-uncased vocab is in the repository: its special tokens at
+    # their real ids, the prompt's word at a free one
+    vocab = {"[PAD]": 0, "[UNK]": 100, "[CLS]": 101, "[SEP]": 102, ".": 1012, "?": 1029,
+             "boat": 4049}
+    img = (np.random.default_rng(0).random((480, 640, 3)) * 255).astype(np.uint8)
+
+    def call():
+        return dino_sam.extract_mask(dparams, sparams, img, "boat", vocab=vocab).cpu()
+
+    for _ in range(2):  # warm-up: builds the per-shape constants, caches the prompt
+        call()
+    targets = [
+        (dino, "forward", "dino forward (all)"),
+        (swin, "forward", "swin backbone"),
+        (dino, "bi_attention", "fusion (bi-attention)"),
+        (dino, "deformable_attention",
+         lambda query, ref_points, *a: "deformable attention, "
+         + ("encoder" if ref_points.shape[-1] == 2 else "decoder")),
+        (sam, "encode_uint8", "sam encoder (K4 inside)"),
+        (sam, "mask_union_from_embedding", "sam decode and masks"),
+    ]
+    with _layer_spans(targets) as spans:
+        for _ in range(steps):
+            call()
+    torch.cuda.synchronize()
+    layer_ms = {label: sum(s.elapsed_time(e) for s, e in pairs) / steps
+                for label, pairs in spans.items()}
+
+    # BERT runs once per prompt (dino_sam caches its output); time it cold
+    dino_sam.clear_text_feature_cache()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    dino_sam._text_features(dparams, "boat.", vocab)
+    end.record()
+    end.synchronize()
+    layer_ms["bert + feat_map (once per prompt)"] = start.elapsed_time(end)
+
+    # the host's thresholding and phrase decoding, on outputs already computed
+    ids, out = dino_sam._detect_dispatch(dparams, torch.from_numpy(img).to(dev), "boat", vocab)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    boxes, _ = dino_sam._detect_collect(ids, out, vocab)
+    layer_ms["host thresholding and phrases (after sync)"] = (time.perf_counter() - t0) * 1e3
+
+    def run():
+        for _ in range(steps):
+            call()
+
+    return {"profile": "text-location extract_mask, seeded SwinT-OGC + ViT-B, 480x640 "
+                       "(detection 800x1056, segmentation 1024²), prompt 'boat'",
+            "boxes_kept": int(boxes.shape[0]), "layer_ms_per_call": layer_ms,
+            **_profile(run, steps, trace_path)}
+
+
 def _main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("gatys", "sam"), default="gatys")
+    ap.add_argument("--path", choices=("gatys", "sam", "text-location"), default="gatys")
     ap.add_argument("--size", type=int, default=512, help="Gatys image side")
-    ap.add_argument("--steps", type=int, default=30, help="steps (Gatys) or calls (SAM)")
+    ap.add_argument("--steps", type=int, default=30,
+                    help="steps (Gatys) or calls (SAM, text-location)")
     ap.add_argument("--trace", help="write a Chrome trace here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("prof: needs a CUDA device")
     if args.path == "sam":
         print(json.dumps(_sam(args.steps, args.trace)))
+        return
+    if args.path == "text-location":
+        print(json.dumps(_text_location(args.steps, args.trace)))
         return
 
     from tbist_tpu_torch.optimize import gatys

@@ -139,9 +139,12 @@ def test_cli_drives_the_port_on_cpu(tmp_path):
     assert np.asarray(Image.open(out)).shape == (64, 64, 3)
 
 
+# --aot-cache is a no-op and --resume-dir counts only where the JAX CLI
+# resumes (tests/test_torch_dino_sam.py): here, with --style-transfer --style
 @pytest.mark.parametrize("flag", [["--video", "x.mp4"], ["--text-style", "mosaic"],
-                                  ["--pixel-art"], ["--depth", "mip"], ["--aot-cache"],
-                                  ["--resume-dir", "d"], ["--channel-attention"]])
+                                  ["--pixel-art"], ["--depth", "mip"], ["--grayscale"],
+                                  ["--resume-dir", "d", "--style-transfer", "--style", STARRY],
+                                  ["--channel-attention"]])
 def test_cli_unported_flags_exit_2(flag, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.main(["--image", BOAT, "--out", "o.png", "--device", "cpu", *flag])
