@@ -33,7 +33,15 @@ Phases, each fatal:
    batch lane against single frames; ``api.apply_image`` with the location
    mask around 400 Gatys steps (DINO → SAM → Gatys → ``composite_by_mask``);
    and ``cli.main --text-location``, which without checkpoints takes the
-   border-prior fallback.
+   border-prior fallback;
+9. effects path: pixel art (face.jpg, a 10-colour k-means palette from
+   picasso2.png, Canny edges), grayscale and Reinhard colour transfer
+   (sea.png to black_white_gradient.jpg and to sunset.png), each timed
+   through the pipeline with its host syncs counted, held against the same
+   call on the CPU and driven through ``cli.main``; k-means twice on the
+   card (bitwise equal) and against the CPU; the Gatys path with
+   ``--channel-attention``; and ``--resume-dir``: half the steps in two
+   segments, then a second call that resumes and runs the other two.
 
 Every launch counter is zeroed just before each path and read just after.
 It prints one JSON line per kernel, shape and dtype, then the card's
@@ -77,6 +85,24 @@ TEXT_ITERS = 5
 # the card-vs-CPU check runs DINO at full width at a reduced detection size
 DINO_CHECK_HW = (256, 320)
 MASK_TOL = 1e-3  # share of a mask's pixels two f32 computations may disagree on
+# the effects path: each run's content image and CLI flags, at the sizes a
+# user sends (face.jpg 1024², sea.png 962x660; the Reinhard target
+# black_white_gradient.jpg is 5001x2916 and the k-means source picasso2.png
+# 1080², both taken whole)
+PICASSO2 = os.path.join(ROOT, "data/style_imgs/picasso2.png")
+_FACE, _SEA = (os.path.join(ROOT, "data/content_imgs", f) for f in ("face.jpg", "sea.png"))
+_BW, _SUNSET = (os.path.join(ROOT, "data/style_imgs", f)
+                for f in ("black_white_gradient.jpg", "sunset.png"))
+EFFECT_RUNS = {
+    "pixel_art": (_FACE, ["--pixel-art", "--pixel-from-image", PICASSO2, "--pixel-colors", "10",
+                          "--pixel-edges", "--edge-threshold", "50"]),
+    "grayscale": (_SEA, ["--grayscale"]),
+    "color_palette_bw": (_SEA, ["--color-palette", _BW]),
+    "grayscale_color_palette_bw": (_SEA, ["--grayscale", "--color-palette", _BW]),
+    "grayscale_color_palette_sunset": (_SEA, ["--grayscale", "--color-palette", _SUNSET]),
+}
+EFFECT_ITERS = 5
+PIXEL_TOL = 1e-3  # share of pixels two computations of pixel art may disagree on
 SPIN_HZ = 2e9  # cycles per second of torch.cuda._sleep: at most the H100's 1.98 GHz SM clock
 
 
@@ -397,8 +423,9 @@ def check_sam_agreement(device) -> None:
         raise AssertionError("SAM card and CPU runs disagree")
 
 
-def run_main_path(size: int, steps: int):
-    """Phase 5: the CLI at full width; returns (launch counts, metrics, peak bytes)."""
+def run_main_path(size: int, steps: int, flags=(), out_name: str = "smoke_out.png"):
+    """Phase 5: the CLI at full width, with ``flags`` added to
+    ``--style-transfer``; returns (launch counts, metrics, peak bytes)."""
     import numpy as np
     import torch
     from PIL import Image
@@ -406,11 +433,11 @@ def run_main_path(size: int, steps: int):
     from tbist_tpu_torch import cli, kernels
     from tbist_tpu_torch.utils.logging import RunMetrics
 
-    out_path = os.path.join(ROOT, "build", "smoke_out.png")
+    out_path = os.path.join(ROOT, "build", out_name)
     os.makedirs(os.path.dirname(out_path), exist_ok=True)
     argv = ["--image", os.path.join(ROOT, "data/content_imgs/boat.jpg"),
             "--style", os.path.join(ROOT, "data/style_imgs/starry_night.jpg"),
-            "--style-transfer", "--steps", str(steps), "--out", out_path,
+            "--style-transfer", *flags, "--steps", str(steps), "--out", out_path,
             "--device", "cuda"]
     metrics = RunMetrics()
     torch.cuda.synchronize()
@@ -423,7 +450,7 @@ def run_main_path(size: int, steps: int):
         raise AssertionError(f"cli.main returned {rc}")
     hist = np.asarray(metrics.loss_history)
     img = np.asarray(Image.open(out_path))
-    log(json.dumps({"main_path": "cli --style-transfer", "steps": steps,
+    log(json.dumps({"main_path": " ".join(["cli --style-transfer", *flags]), "steps": steps,
                     "image": list(img.shape), "loss_first": float(hist[0]),
                     "loss_last": float(hist[-1]),
                     "iters_per_sec": metrics.extra["iters_per_sec"],
@@ -433,12 +460,17 @@ def run_main_path(size: int, steps: int):
         raise AssertionError(f"output image {img.shape}, expected {(size, size, 3)}")
     if hist.shape != (steps,) or not np.isfinite(hist).all() or not hist[-1] < hist[0]:
         raise AssertionError("loss history is not finite and decreasing")
-    n_style = len(STYLE_LAYERS)
-    want = {"gram_fwd": n_style * steps + n_style, "gram_bwd": n_style * steps,
-            "relu_pool_bwd": len(POOL_CHANNELS) * steps, "pool_bwd": 0, "sam_attn": 0}
-    if counts != want:
-        raise AssertionError(f"launch counts {counts}, expected {want}")
+    _expect_launches(counts, **gatys_launches(steps))
     return counts, metrics, peak
+
+
+def gatys_launches(steps: int, calls: int = 1):
+    """K1 and K3 launches of ``calls`` ``stylize`` calls of ``steps`` steps
+    each: every call computes the style targets' Grams once, then each step
+    one Gram forward and backward per style layer and a K3 at every pool."""
+    n_style = len(STYLE_LAYERS)
+    return {"gram_fwd": calls * n_style * (steps + 1), "gram_bwd": calls * n_style * steps,
+            "relu_pool_bwd": calls * len(POOL_CHANNELS) * steps}
 
 
 def _expect_launches(counts, **launches: int) -> None:
@@ -632,11 +664,30 @@ def check_dino_agreement(device, params_cpu, vocab) -> None:
         raise AssertionError("DINO card and CPU runs disagree")
 
 
+def sync_sites(fn):
+    """Run ``fn()`` with CUDA's sync debug mode on. Returns (its result, host
+    ms, the lines that made the host wait for the card): the warning names
+    the innermost Python frame, the call of the op that synchronized."""
+    import warnings
+
+    import torch
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            out = fn()
+            ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, ms, [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
+                     if "called a synchronizing CUDA operation" in str(w.message)]
+
+
 def run_text_location_path(device, smi: str, sam_params):
     """Phase 8: the text→mask chain at full width on seeded weights.
     Returns ({kernel: launches over the phase}, metrics)."""
-    import warnings
-
     import numpy as np
     import torch
     from PIL import Image
@@ -702,28 +753,12 @@ def run_text_location_path(device, smi: str, sam_params):
     boxes, phrases = dino_sam._detect_collect(ids, out, vocab)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    torch.cuda.set_sync_debug_mode("warn")
     syncs = {}
-    try:
-        # each window's syncs, as the lines that made them (the warning names
-        # the innermost Python frame: the call of the op that synchronized)
-        def window(name, fn):
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                t0 = time.perf_counter()
-                out = fn()
-                ms = (time.perf_counter() - t0) * 1e3
-            syncs[name] = [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
-                           if "called a synchronizing CUDA operation" in str(w.message)]
-            return out, ms
-
-        (ids, out), dispatch_ms = window(
-            "dino_dispatch", lambda: dino_sam._detect_dispatch(dino, img_dev, TEXT_PROMPT, vocab))
-        _, encoder_ms = window("sam_encoder_queue",
-                               lambda: sam.encode_uint8(sam_params, sam.BASE, img_dev))
-        window("collect", lambda: dino_sam._detect_collect(ids, out, vocab))
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
+    (ids, out), dispatch_ms, syncs["dino_dispatch"] = sync_sites(
+        lambda: dino_sam._detect_dispatch(dino, img_dev, TEXT_PROMPT, vocab))
+    _, encoder_ms, syncs["sam_encoder_queue"] = sync_sites(
+        lambda: sam.encode_uint8(sam_params, sam.BASE, img_dev))
+    _, _, syncs["collect"] = sync_sites(lambda: dino_sam._detect_collect(ids, out, vocab))
     n_dino = len(syncs["dino_dispatch"])
     counts = kernels.launch_counts()
     _expect_launches(counts, sam_attn=per_call)
@@ -795,9 +830,7 @@ def run_text_location_path(device, smi: str, sam_params):
                           device=device)
     seconds = time.perf_counter() - t0
     counts = kernels.launch_counts()
-    n_style = len(STYLE_LAYERS)
-    _expect_launches(counts, sam_attn=per_call, gram_fwd=n_style * STEPS + n_style,
-                     gram_bwd=n_style * STEPS, relu_pool_bwd=len(POOL_CHANNELS) * STEPS)
+    _expect_launches(counts, sam_attn=per_call, **gatys_launches(STEPS))
     tally(counts)
     arr = np.asarray(out)
     log(json.dumps({"text_location_pipeline": f"apply_image, location mask + {STEPS} Gatys "
@@ -824,6 +857,159 @@ def run_text_location_path(device, smi: str, sam_params):
     return total, metrics
 
 
+def _effect_inputs(image: str, flags, device):
+    """The request and the input tensors the CLI makes of ``flags``, loaded
+    as ``api.apply_image`` loads them (full size, no bucketing)."""
+    from tbist_tpu_torch import cli
+    from tbist_tpu_torch.utils.imageio import load_image, to_device
+
+    args = cli.build_parser().parse_args(["--image", image, "--out", "unused.png", *flags])
+    paths = {"image": args.image, "color_palette_image": args.color_palette,
+             "pixel_palette_image": args.pixel_from_image}
+    return cli.request_from_args(args), {k: to_device(load_image(p), device=device)
+                                         for k, p in paths.items() if p}
+
+
+def _effect_call(req, tensors, registry):
+    """One pipeline call on ``tensors``, ending in the output's read-back."""
+    from tbist_tpu_torch.compose import pipeline
+
+    inputs = pipeline.EffectInputs(**{k: v for k, v in tensors.items() if k != "image"})
+    return pipeline.apply_image(tensors["image"], req, inputs, registry).cpu()
+
+
+def run_effects_path(device, smi: str):
+    """Phase 9: the cheap effects at their real sizes, then channel attention
+    and resumable Gatys. Returns ({kernel: launches over the phase}, metrics)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from tbist_tpu_torch import cli, kernels
+    from tbist_tpu_torch.compose import pipeline
+    from tbist_tpu_torch.ops import palette
+    from tbist_tpu_torch.optimize import checkpoint
+    from tbist_tpu_torch.utils.imageio import from_device, load_image, to_device
+    from tbist_tpu_torch.utils.logging import RunMetrics
+
+    cpu = torch.device("cpu")
+    effects = {}
+    for name, (image, flags) in EFFECT_RUNS.items():
+        req, host = _effect_inputs(image, flags, cpu)
+        dev = {k: v.to(device) for k, v in host.items()}
+        reg = pipeline.ModelRegistry(device=device)
+        kernels.reset_launch_counts()
+        _effect_call(req, dev, reg)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # the inputs, and what earlier phases keep
+        times = []
+        for _ in range(EFFECT_ITERS):
+            t0 = time.perf_counter()
+            out = _effect_call(req, dev, reg)
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() - held
+        again, _, sites = sync_sites(lambda: _effect_call(req, dev, reg))
+        _expect_launches(kernels.launch_counts())  # no kernel of the port is on this path
+        want = _effect_call(req, host, pipeline.ModelRegistry(device=cpu))
+        diff = (out - want).abs()
+        n_diff = int((diff > 1e-6).any(-1).sum())
+        n_pixels = out.shape[1] * out.shape[2]
+
+        # the same flags through the CLI on the card
+        out_path = os.path.join(ROOT, "build", f"smoke_{name}.png")
+        run = RunMetrics()
+        rc = cli.main(["--image", image, "--out", out_path, *flags, "--device", "cuda"],
+                      metrics=run)
+        png = np.asarray(Image.open(out_path))
+        cli_diff = int((png != np.asarray(from_device(out))).any(-1).sum())
+        line = {"effect": name, "flags": [os.path.relpath(f, ROOT) if f.startswith(ROOT) else f
+                                          for f in flags],
+                "image": list(out.shape[1:]), "ms": float(np.median(times)), "ms_all": times,
+                "peak_bytes_of_call": peak, "host_syncs": len(sites), "host_sync_sites": sites,
+                "card_vs_cpu_max_abs_err": float(diff.max()),
+                "card_vs_cpu_pixels_differing": n_diff, "pixels": n_pixels,
+                "repeat_bitwise_equal": bool(torch.equal(out, again)),
+                "cli_rc": rc, "cli_pixels_differing_from_pipeline": cli_diff, "card": smi}
+        log(json.dumps(line))
+        effects[name] = line
+        # pixel art's edges and palette decide ties, so it is held by pixels;
+        # the other effects are float arithmetic, held to 1e-5
+        ok = (n_diff <= PIXEL_TOL * n_pixels if name.startswith("pixel_art")
+              else line["card_vs_cpu_max_abs_err"] <= 1e-5)
+        if not (ok and rc == 0 and png.shape == tuple(out.shape[1:]) and cli_diff == 0
+                and bool(torch.isfinite(out).all()) and line["repeat_bitwise_equal"]):
+            raise AssertionError(f"effect {name}: {line}")
+
+    # k-means: two card calls bitwise equal; card and CPU palettes equal from
+    # the same initial centres
+    picasso = to_device(load_image(PICASSO2), device=device)[0]
+    flat = picasso.reshape(-1, 3) * 255.0
+    first, second = palette.kmeans(flat, 10), palette.kmeans(flat, 10)
+    bitwise = torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    init = palette.draw_init_idx(flat.shape[0], 10)
+    times = []
+    for _ in range(EFFECT_ITERS):
+        t0 = time.perf_counter()
+        pal_card = palette.palette_from_image(picasso, 10, init_idx=init)
+        times.append((time.perf_counter() - t0) * 1e3)
+    pal_cpu = palette.palette_from_image(picasso.cpu(), 10, init_idx=init)
+    kline = {"kmeans": f"palette_from_image, {flat.shape[0]} pixels, k 10",
+             "ms": float(np.median(times)), "ms_all": times, "two_card_calls_bitwise_equal": bitwise,
+             "card_palette_equals_cpu": bool(np.array_equal(pal_card, pal_cpu)),
+             "palette": pal_card.tolist()}
+    log(json.dumps(kline))
+    if not (bitwise and kline["card_palette_equals_cpu"]):
+        raise AssertionError(f"k-means: {kline}")
+
+    # channel attention: the Gatys path's run with --channel-attention
+    total, ca_metrics, ca_peak = run_main_path(SIZE, STEPS, ["--channel-attention"],
+                                               "smoke_channel_attention.png")
+    total = dict(total)
+
+    # resumable Gatys: half the steps in two segments, then the rest
+    resume_dir = os.path.join(ROOT, "build", "smoke_resume")
+    shutil.rmtree(resume_dir, ignore_errors=True)
+    boat = os.path.join(ROOT, "data/content_imgs/boat.jpg")
+    starry = os.path.join(ROOT, "data/style_imgs/starry_night.jpg")
+    resume = []
+    half, segment = STEPS // 2, STEPS // 4
+    for steps in (half, STEPS):
+        run = RunMetrics()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        rc = cli.main(["--image", boat, "--style", starry, "--style-transfer", "--resume-dir",
+                       resume_dir, "--steps", str(steps), "--segment-steps", str(segment),
+                       "--out", os.path.join(ROOT, "build", "smoke_resume.png"),
+                       "--device", "cuda"], metrics=run)
+        counts = kernels.launch_counts()
+        hist = np.asarray(run.loss_history)
+        line = {"resume": f"cli --resume-dir --steps {steps} --segment-steps {segment}", "rc": rc,
+                **run.extra, "new_steps": len(hist), "seconds": run.timings_s["gatys"],
+                "iters_per_sec": len(hist) / run.timings_s["gatys"],
+                "loss_first": float(hist[0]), "loss_last": float(hist[-1]),
+                "latest_step": checkpoint.latest_step(resume_dir), "launches": counts}
+        log(json.dumps(line))
+        resume.append(line)
+        if not (rc == 0 and run.extra == {"resumed_at_step": steps - half, "segments": 2}
+                and hist.shape == (half,) and np.isfinite(hist).all()
+                and line["latest_step"] == steps):
+            raise AssertionError(f"resumed run: {line}")
+        # each segment is a stylize call: it recomputes the style targets' Grams
+        _expect_launches(counts, **gatys_launches(segment, calls=2))
+        for k, v in counts.items():
+            total[k] += v
+    metrics = {"effects": {k: {"ms": v["ms"], "peak_bytes_of_call": v["peak_bytes_of_call"],
+                               "host_syncs": v["host_syncs"]} for k, v in effects.items()},
+               "kmeans_ms": kline["ms"],
+               "channel_attention_iters_per_sec": ca_metrics.extra["iters_per_sec"],
+               "channel_attention_max_memory_allocated": ca_peak,
+               "resume_iters_per_sec": [r["iters_per_sec"] for r in resume], "card": smi}
+    return total, metrics
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
@@ -841,9 +1027,11 @@ SOURCES = {
     "sam_attn": ("tbist_tpu_torch/csrc/sam_attn.cu", "tbist_tpu/ops/pallas_sam_attn.py:57"),
 }
 # the paths each kernel runs on (text-location: K4 in SAM's encoder behind
-# DINO, K1 and K3 where stage 4 runs under the location mask)
-PATHS = {"gram_fwd": "gatys, text-location", "gram_bwd": "gatys, text-location",
-         "pool_bwd": "none", "relu_pool_bwd": "gatys, text-location",
+# DINO, K1 and K3 where stage 4 runs under the location mask; effects: K1
+# and K3 under channel attention and in the resumed segments)
+PATHS = {"gram_fwd": "gatys, text-location, effects",
+         "gram_bwd": "gatys, text-location, effects",
+         "pool_bwd": "none", "relu_pool_bwd": "gatys, text-location, effects",
          "sam_attn": "sam, text-location"}
 
 
@@ -914,10 +1102,21 @@ def main() -> int:
             f"{text_metrics['host_syncs']}, on {smi}")
     del sam_params
 
+    with phase("effects path"):
+        effect_counts, effect_metrics = run_effects_path(device, smi)
+        log("effects path: " + ", ".join(
+            f"{k} {v['ms']:.2f} ms ({v['host_syncs']} host syncs, peak {v['peak_bytes_of_call']} "
+            f"bytes above what was held)" for k, v in effect_metrics["effects"].items())
+            + f"; k-means {effect_metrics['kmeans_ms']:.2f} ms; channel attention "
+            f"{effect_metrics['channel_attention_iters_per_sec']:.2f} iters/s; resumed runs "
+            f"{', '.join(f'{r:.2f}' for r in effect_metrics['resume_iters_per_sec'])} iters/s; "
+            f"on {smi}")
+
     launches_by_path = {
         "gatys": {k: v for k, v in counts.items() if k != "sam_attn"},
         "sam": {"sam_attn": counts["sam_attn"]},
         "text-location": text_counts,
+        "effects": effect_counts,
     }
     work = {
         "gatys": "one step of the Gatys path at 512px, f32: the sum over its shapes",

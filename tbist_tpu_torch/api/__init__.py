@@ -51,6 +51,8 @@ def apply_image(
     style_image: Optional[ImageLike] = None,
     style_image1: Optional[ImageLike] = None,
     style_image2: Optional[ImageLike] = None,
+    color_palette_image: Optional[ImageLike] = None,
+    pixel_palette_image: Optional[ImageLike] = None,
     registry: Optional[ModelRegistry] = None,
     metrics: Optional[RunMetrics] = None,
     device="cuda",
@@ -64,6 +66,8 @@ def apply_image(
         style_image=_as_device(style_image, device),
         style_image1=_as_device(style_image1, device),
         style_image2=_as_device(style_image2, device),
+        color_palette_image=_as_device(color_palette_image, device),
+        pixel_palette_image=_as_device(pixel_palette_image, device),
     )
     out = _apply(x, request, inputs, registry or ModelRegistry(device=device), metrics)
     if out is None:

@@ -5,12 +5,13 @@ Example:
       --style data/style_imgs/starry_night.jpg --style-transfer \
       --steps 200 --out out.png
 
-It takes the JAX CLI's flags. Flags of effects the port does not run yet
-stop the CLI with a message naming the ROADMAP item and exit code 2.
+It takes the JAX CLI's flags. ``--video``, ``--text-style``,
+``--text-texture`` and ``--depth`` name effects the port does not run yet:
+they stop the CLI with a message naming the ROADMAP item and exit code 2.
 ``--aot-cache`` is accepted and does nothing (the eager port compiles
-nothing to cache; ROADMAP item 32), and ``--resume-dir`` stops the CLI only
-where the JAX CLI would use it: with ``--style-transfer``, ``--image`` and
-``--style`` (item 9).
+nothing to cache; ROADMAP item 32). ``--resume-dir`` runs the optimisation
+in checkpointed segments where the JAX CLI does: with ``--style-transfer``,
+``--image`` and ``--style``.
 """
 
 from __future__ import annotations
@@ -20,20 +21,22 @@ import sys
 from typing import Optional
 
 from tbist_tpu_torch import api
-from tbist_tpu_torch.utils.config import EffectRequest, GatysConfig, TextEffectConfig
+from tbist_tpu_torch.utils.config import (
+    DepthConfig,
+    EffectRequest,
+    GatysConfig,
+    PixelArtConfig,
+    TextEffectConfig,
+    VideoConfig,
+)
 from tbist_tpu_torch.utils.logging import RunMetrics, logger
 
 # (argparse dest, flag, the ROADMAP Queue 1 item that ports it)
 _UNPORTED_FLAGS = (
     ("video", "--video", "slice 7, items 28-30"),
-    ("grayscale", "--grayscale", "item 11"),
     ("text_style", "--text-style", "items 17-19"),
     ("text_texture", "--text-texture", "item 24"),
-    ("pixel_art", "--pixel-art", "item 13"),
-    ("pixel_from_image", "--pixel-from-image", "item 13"),
-    ("color_palette", "--color-palette", "item 11"),
     ("depth", "--depth", "items 25-27"),
-    ("channel_attention", "--channel-attention", "item 8"),
 )
 
 
@@ -114,10 +117,27 @@ def request_from_args(args) -> EffectRequest:
             detection_size=args.detection_size,
             segmentation_size=args.segmentation_size,
         )
+    pixel = None
+    if args.pixel_art:
+        pixel = PixelArtConfig(
+            pixel_size=args.pixel_size,
+            use_palette=args.pixel_palette >= 0 or bool(args.pixel_from_image),
+            palette_number=max(args.pixel_palette, 0),
+            palette_from_image=bool(args.pixel_from_image),
+            palette_num_colors=args.pixel_colors,
+            interpolate=args.pixel_interpolate,
+            edge_detect=args.pixel_edges,
+            edge_threshold=args.edge_threshold,
+        )
+    depth = DepthConfig(mode=args.depth, mip_layers=args.mip_layers) if args.depth else None
     return EffectRequest(
+        grayscale=args.grayscale,
         text=text,
+        pixel_art=pixel,
         style_transfer=args.style_transfer,
         style_mixing=args.mixing,
+        color_palette=bool(args.color_palette),
+        depth=depth,
         gatys=GatysConfig(
             num_steps=args.steps,
             optimizer=args.optimizer,
@@ -125,7 +145,36 @@ def request_from_args(args) -> EffectRequest:
             channel_attention=args.channel_attention,
             dtype="bfloat16" if args.bf16 else "float32",
         ),
+        video=VideoConfig(interpolation_frames=args.interp_frames, slowmo=args.slowmo),
     )
+
+
+def _resume(args, cfg: GatysConfig, metrics: RunMetrics) -> int:
+    """Resumable pixel optimization (``optimize.checkpoint``): segments of
+    ``--segment-steps`` with the state saved between them."""
+    import time
+
+    from tbist_tpu_torch.optimize import checkpoint as ckpt
+    from tbist_tpu_torch.utils import degraded
+    from tbist_tpu_torch.utils.imageio import from_device, load_image, to_device
+    from tbist_tpu_torch.weights import vgg as vgg_weights
+
+    content, style = (to_device(load_image(p), cfg.shape_bucket, cfg.max_side, device=args.device)
+                      for p in (args.image, args.style))
+    t0 = time.perf_counter()
+    out, hist = ckpt.stylize_resumable(
+        content, [style], cfg, vgg_weights.get_params(device=args.device),
+        args.resume_dir, args.segment_steps, device=args.device, metrics=metrics,
+    )
+    metrics.timings_s["gatys"] = time.perf_counter() - t0  # ends in the last read-back
+    metrics.loss_history = hist
+    from_device(out).save(args.out)
+    flags = degraded.flags_for(["vgg_params"])
+    if flags:
+        metrics.degraded = sorted(set(metrics.degraded) | set(flags))
+        logger.warning("degraded components: %s", ", ".join(flags))
+    logger.info("wrote %s (resumable, %d new steps)", args.out, len(hist))
+    return 0
 
 
 def main(argv=None, metrics: Optional[RunMetrics] = None) -> int:
@@ -136,16 +185,17 @@ def main(argv=None, metrics: Optional[RunMetrics] = None) -> int:
     for dest, flag, item in _UNPORTED_FLAGS:
         if getattr(args, dest):
             parser.error(f"{flag} is not ported to the GPU yet (ROADMAP Queue 1, {item})")
-    if args.resume_dir and args.style_transfer and args.image and args.style:
-        parser.error("--resume-dir is not ported to the GPU yet (ROADMAP Queue 1, item 9)")
     if args.aot_cache:
         logger.info("--aot-cache: the port has no executable cache yet (ROADMAP Queue 1, "
                     "item 32); ignored")
     req = request_from_args(args)
     metrics = metrics if metrics is not None else RunMetrics()
+    if args.resume_dir and args.style_transfer and args.image and args.style:
+        return _resume(args, req.gatys, metrics)
     out = api.apply_image(
         args.image, req,
         style_image=args.style, style_image1=args.style, style_image2=args.style2,
+        color_palette_image=args.color_palette, pixel_palette_image=args.pixel_from_image,
         metrics=metrics, device=args.device,
     )
     if out is None:

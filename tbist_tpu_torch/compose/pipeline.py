@@ -3,11 +3,12 @@
 The JAX package chains seven stages in the reference order (app.py:157-735):
 grayscale → text → pixel art → style transfer → style mixing → color
 palette → depth, where each heavyweight effect repeats a 3-way text-mask
-dispatch (``_masked_apply``). The port runs the text stage's location mode
-(a GroundingDINO+SAM mask, or its fallback), stage 4 (style transfer) and
-stage 5 (style mixing), each of the last two under the location mask when
-there is one. A request that needs any other stage raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+dispatch (``_masked_apply``). The port runs stage 1 (grayscale), the text
+stage's location mode (a GroundingDINO+SAM mask, or its fallback), stage 3
+(pixel art), stages 4 and 5 (style transfer and mixing) and stage 6 (color
+palette), stages 3-6 under the location mask when there is one. A request
+that needs the text stage's style or texture mode, or stage 7 (depth),
+raises ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from tbist_tpu_torch.effects import basic
+from tbist_tpu_torch.effects import pixel_art as pixel_art_fx
 from tbist_tpu_torch.effects import style as style_fx
 from tbist_tpu_torch.ops import masks as mask_ops
 from tbist_tpu_torch.utils import degraded
@@ -46,7 +49,9 @@ class ModelRegistry:
         """Lazily resolve only the models a request actually needs."""
         for name in names:
             if name not in ("vgg_params", "mask_extractor", "batch_mask_extractor"):
-                raise NotImplementedError(f"model {name!r} is not ported yet")
+                raise NotImplementedError(
+                    f"model {name!r} is not ported yet (ROADMAP Queue 1: text_transfer items "
+                    "17-19, emoji_extractor item 24, depth_estimator items 25-27)")
             if getattr(self, name) is not None:
                 continue
             self.resolved_by_loader.add(name)
@@ -72,6 +77,8 @@ class EffectInputs:
     style_image: Optional[torch.Tensor] = None  # style transfer
     style_image1: Optional[torch.Tensor] = None  # mixing
     style_image2: Optional[torch.Tensor] = None
+    color_palette_image: Optional[torch.Tensor] = None  # Reinhard target
+    pixel_palette_image: Optional[torch.Tensor] = None  # k-means palette source
 
 
 @dataclasses.dataclass
@@ -112,13 +119,10 @@ def _masked_apply(effect_fn: Callable[[torch.Tensor], torch.Tensor], original: t
 
 # stage -> the ROADMAP Queue 1 item that ports it
 _UNPORTED_STAGES = (
-    ("grayscale", lambda r: r.grayscale, "item 11 (effects/basic.py)"),
     ("text style", lambda r: r.text is not None and bool(r.text.style_prompt),
      "items 17-19 (feed-forward text style)"),
     ("text texture", lambda r: r.text is not None and bool(r.text.texture_prompt),
      "item 24 (T5 emoji texture)"),
-    ("pixel_art", lambda r: r.pixel_art is not None, "item 13 (effects/pixel_art.py)"),
-    ("color_palette", lambda r: r.color_palette, "item 11 (effects/basic.py)"),
     ("depth", lambda r: r.depth is not None, "items 25-27 (depth)"),
 )
 
@@ -170,11 +174,15 @@ def _apply_stages(
     registry: ModelRegistry,
     metrics: RunMetrics,
 ) -> Optional[torch.Tensor]:
-    """The text stage's location mode, then stages 4 and 5 of the reference
-    order (app.py:161-282, 372-590)."""
+    """Stage 1, the text stage's location mode, then stages 3 to 6 of the
+    reference order (app.py:157-658)."""
     original = image
     output = image
     state = _TextState(mode=_text_mode(req.text))
+
+    # ---- 1. grayscale (app.py:157-159) ----
+    if req.grayscale:
+        output = basic.grayscale(output)
 
     # ---- 2. text effects (app.py:161-282): the location mode ----
     if state.mode == "location":
@@ -184,6 +192,20 @@ def _apply_stages(
                                                        req.text)
         m = state.loc_mask.float()  # the mask visualisation
         output = m[None, ..., None].expand(1, *m.shape, 3)
+
+    # ---- 3. pixel art (app.py:284-370) ----
+    if req.pixel_art is not None:
+        pcfg = req.pixel_art
+        palette = None
+        if pcfg.use_palette and pcfg.palette_from_image:
+            if inputs.pixel_palette_image is None:
+                return None
+            from tbist_tpu_torch.ops import palette as palette_ops
+
+            palette = palette_ops.palette_from_image(inputs.pixel_palette_image[0],
+                                                     pcfg.palette_num_colors)
+        output = _masked_apply(lambda img: pixel_art_fx.pixel_art(img, pcfg, palette=palette),
+                               original, output, state, req)
 
     # ---- 4. style transfer (app.py:372-470) ----
     if req.style_transfer:
@@ -203,6 +225,14 @@ def _apply_stages(
         output = _masked_apply(
             lambda img: style_fx.style_transfer(img, styles, req.gatys, registry.vgg_params,
                                                 metrics=metrics, device=image.device),
+            original, output, state, req)
+
+    # ---- 6. color palette transfer (app.py:592-658) ----
+    if req.color_palette:
+        if inputs.color_palette_image is None:
+            return None
+        output = _masked_apply(
+            lambda img: basic.color_palette_transfer(img, inputs.color_palette_image),
             original, output, state, req)
 
     return output

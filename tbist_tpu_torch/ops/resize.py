@@ -3,8 +3,9 @@
 
 Gather-based, on (..., H, W, C) tensors: cv2 ``INTER_NEAREST`` and the
 half-pixel (cv2 ``INTER_LINEAR``, torch default) or ``align_corners=True``
-bilinear conventions. The source indices and weights are computed on the
-host in float64, as the JAX package computes them with x64 on.
+bilinear conventions. The source indices and weights are computed in
+float64, as the JAX package computes them with x64 on: the nearest indices
+on the tensor's device, the bilinear ones on the host.
 """
 
 from __future__ import annotations
@@ -15,15 +16,19 @@ import numpy as np
 import torch
 
 
+def _nearest_index(n_out: int, n_in: int, device) -> torch.Tensor:
+    # float64 on the tensor's device: the same IEEE operations as numpy's,
+    # and no host-to-device copy for the host to wait on
+    src = torch.arange(n_out, dtype=torch.float64, device=device) * (n_in / n_out)
+    return torch.floor(src).clamp(0, n_in - 1).long()
+
+
 def resize_nearest(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     """cv2 INTER_NEAREST semantics: src index = floor(dst * src/dst), over
     the (-3, -2) axes of an (..., H, W, C) tensor."""
     h_out, w_out = out_hw
-    h_in, w_in = x.shape[-3], x.shape[-2]
-    rows = np.clip(np.floor(np.arange(h_out) * (h_in / h_out)), 0, h_in - 1)
-    cols = np.clip(np.floor(np.arange(w_out) * (w_in / w_out)), 0, w_in - 1)
-    out = torch.index_select(x, -3, torch.as_tensor(rows.astype(np.int64), device=x.device))
-    return torch.index_select(out, -2, torch.as_tensor(cols.astype(np.int64), device=x.device))
+    out = torch.index_select(x, -3, _nearest_index(h_out, x.shape[-3], x.device))
+    return torch.index_select(out, -2, _nearest_index(w_out, x.shape[-2], x.device))
 
 
 def _linear_weights(n_out: int, n_in: int, align_corners: bool):

@@ -16,15 +16,15 @@ with the Gram matrices accumulated in f32.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from tbist_tpu_torch.models import vgg19
+from tbist_tpu_torch.models import channel_attention, vgg19
 from tbist_tpu_torch.ops import losses
 from tbist_tpu_torch.optimize import lbfgs
 from tbist_tpu_torch.utils.config import VGG_MEAN, VGG_STD, GatysConfig
-from tbist_tpu_torch.utils.imageio import resolve_device
+from tbist_tpu_torch.utils.imageio import resolve_device, upload
 from tbist_tpu_torch.utils.precision import full_f32
 
 # optax.adam defaults
@@ -38,6 +38,27 @@ def style_weight_from_strength(strength: float) -> float:
     return 5e5 * math.e ** (strength - 1.0 / strength)
 
 
+def random_start(shape, seed: int, device) -> torch.Tensor:
+    """The starting pixels of ``cfg.random_init``: standard normal from a
+    ``torch.Generator`` seeded with ``seed``, drawn on the CPU."""
+    return upload(torch.randn(tuple(shape), generator=torch.Generator().manual_seed(seed)),
+                  device)
+
+
+def _attend(content_feats, cfg: GatysConfig, given, device):
+    """SE channel attention over the content features of
+    ``cfg.content_layers`` (``tbist_tpu/optimize/gatys.py:142-157``)."""
+    feats = dict(content_feats)
+    for layer in cfg.content_layers:
+        params = (given or {}).get(layer)
+        if params is None:
+            gen = torch.Generator().manual_seed(channel_attention.layer_seed(cfg.seed, layer))
+            params = channel_attention.init_params(gen, feats[layer].shape[-1])
+        params = {k: upload(v, device).float() for k, v in params.items()}
+        feats[layer] = channel_attention.apply(params, feats[layer])
+    return feats
+
+
 def stylize(
     content: torch.Tensor,
     styles: Sequence[torch.Tensor],
@@ -45,21 +66,23 @@ def stylize(
     vgg_params,
     init: Optional[torch.Tensor] = None,
     device="cuda",
+    channel_attention_params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run Gatys optimization. Returns (image (1,H,W,3) in [0,1], loss
     history (num_steps,)), both on ``device``.
 
     ``styles`` holds one or two NHWC style images; two trigger style mixing
-    with ``cfg.style_img_weight``. ``init`` overrides the starting pixels.
-    ``cfg.random_init`` draws the start from a ``torch.Generator`` seeded
-    with ``cfg.seed``: the same distribution as the JAX package's
-    ``jax.random.normal``, not the same numbers.
+    with ``cfg.style_img_weight``. ``init`` overrides the starting pixels
+    (checkpoint resume) while the targets stay those of ``content`` and
+    ``styles``. ``cfg.random_init`` draws the start from a
+    ``torch.Generator`` seeded with ``cfg.seed`` (``random_start``): the
+    same distribution as the JAX package's ``jax.random.normal``, not the
+    same numbers. ``cfg.channel_attention`` reweights the content features
+    of ``cfg.content_layers`` with SE attention before the loop; each
+    layer's weights are drawn from a generator seeded with ``cfg.seed`` and
+    the layer's name (``channel_attention.layer_seed``), unless
+    ``channel_attention_params`` gives them by layer.
     """
-    if cfg.channel_attention:
-        raise NotImplementedError(
-            "channel_attention is not ported yet (ROADMAP Queue 1, item 8: "
-            "models/channel_attention.py)"
-        )
     if cfg.optimizer not in ("lbfgs", "adam"):
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
     device = resolve_device(device)
@@ -95,6 +118,8 @@ def stylize(
                     cfg.exact_reference_mixer,
                 )
             target_grad = losses.gradient_images(losses.to_grayscale(normed_content))
+            if cfg.channel_attention:
+                content_feats = _attend(content_feats, cfg, channel_attention_params, device)
 
         def loss_fn(img: torch.Tensor) -> torch.Tensor:
             normed = losses.normalize(img, mean, std)
@@ -118,8 +143,7 @@ def stylize(
         if init is not None:
             img = init.to(device, torch.float32)
         elif cfg.random_init:
-            gen = torch.Generator().manual_seed(cfg.seed)
-            img = torch.randn(content.shape, generator=gen).to(device)
+            img = random_start(content.shape, cfg.seed, device)
         else:
             img = content.clone()
 

@@ -27,6 +27,18 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
     return device
 
 
+def upload(x: ArrayLike, device: Union[str, torch.device]) -> torch.Tensor:
+    """Array -> tensor on ``device``. A host array goes to a card from
+    pinned memory without blocking, so the host does not wait for the
+    card's queue to drain first (a plain copy from pageable memory does).
+    A tensor already on a card moves as ``Tensor.to`` moves it."""
+    t = torch.as_tensor(x)
+    device = torch.device(device)
+    if device.type != "cuda" or t.device.type != "cpu":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def load_image(path: str) -> Image.Image:
     """Open an image file as RGB PIL (host)."""
     return Image.open(path).convert("RGB")

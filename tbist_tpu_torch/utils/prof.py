@@ -7,13 +7,17 @@ device was busy.
 
 Run as a script on a machine with a CUDA card to profile a path: Gatys
 L-BFGS on boat.jpg x starry_night.jpg, SAM ViT-B ``predict_boxes`` at 1024²
-on seeded weights (a 480x640 image, one box), or the text-location chain
+on seeded weights (a 480x640 image, one box), the text-location chain
 ``models.dino_sam.extract_mask`` (seeded GroundingDINO SwinT-OGC and SAM
-ViT-B, the same image, the prompt "boat")::
+ViT-B, the same image, the prompt "boat"), or two cheap effects through
+the pipeline (pixel art on face.jpg with a 10-colour k-means palette of
+picasso2.png and Canny edges; Reinhard colour transfer of sea.png to
+black_white_gradient.jpg)::
 
     python -m tbist_tpu_torch.utils.prof --size 512 --steps 30
     python -m tbist_tpu_torch.utils.prof --path sam --steps 10
     python -m tbist_tpu_torch.utils.prof --path text-location --steps 5
+    python -m tbist_tpu_torch.utils.prof --path effects --steps 10
 
 It prints one JSON line: device time by kind and of the top kernels per
 step (per call for SAM and text-location), CUDA calls per step that can
@@ -22,7 +26,8 @@ profiler's own host cost included), and the rate of an unprofiled run of
 the same length. For text-location it adds each layer's time per call
 (CUDA events around the Swin backbone, the fusion layers, the encoder's and
 the decoder's deformable attention, the whole DINO forward, SAM's encoder
-and its decode), BERT's once per prompt, and the host's thresholding.
+and its decode), BERT's once per prompt, and the host's thresholding; for
+pixel art, the k-means palette's, the quantizer's and Canny's time per call.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from typing import Dict, Optional
 
 import torch
 
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # kernel-name substrings -> kind, first match wins
 _KINDS = (
     ("K4 sam attention (sam_attn.cu)", ("sam_attn_kernel", "sam_attn_combine_kernel")),
@@ -45,6 +51,7 @@ _KINDS = (
     # DINO's deformable attention samples its value maps with F.grid_sample
     ("deformable sampling (grid_sample)", ("grid_sampler",)),
     ("sort (query selection)", ("RadixSort", "radixSort", "sortKeyValue", "SortKV")),
+    ("max pool (Canny hysteresis)", ("max_pool",)),
     # cuDNN's FFT convolutions run complex (float2) GEMVs; its layout
     # transposes (nchwToNhwc, nhwcToNchw) belong to the convolutions too
     ("convolution (cuDNN)", ("conv", "cudnn", "implicit", "fprop", "dgrad", "winograd",
@@ -255,12 +262,56 @@ def _text_location(steps: int, trace_path: Optional[str]) -> Dict:
             **_profile(run, steps, trace_path)}
 
 
+def _effects(steps: int, trace_path: Optional[str]) -> Dict:
+    from tbist_tpu_torch.compose import pipeline
+    from tbist_tpu_torch.ops import canny, palette
+    from tbist_tpu_torch.utils.config import EffectRequest, PixelArtConfig
+    from tbist_tpu_torch.utils.imageio import load_image, to_device
+
+    def image(path):
+        return to_device(load_image(os.path.join(_ROOT, path)))
+
+    pixel = PixelArtConfig(use_palette=True, palette_from_image=True, palette_num_colors=10,
+                           edge_detect=True, edge_threshold=50)
+    cases = {
+        "pixel_art": (image("data/content_imgs/face.jpg"), EffectRequest(pixel_art=pixel),
+                      pipeline.EffectInputs(pixel_palette_image=image(
+                          "data/style_imgs/picasso2.png"))),
+        "color_palette": (image("data/content_imgs/sea.png"), EffectRequest(color_palette=True),
+                          pipeline.EffectInputs(color_palette_image=image(
+                              "data/style_imgs/black_white_gradient.jpg"))),
+    }
+    targets = [(palette, "palette_from_image", "k-means palette (one read-back)"),
+               (palette, "quantize_to_palette", "quantize"),
+               (canny, "canny", "canny (64 hysteresis rounds)")]
+    out = {}
+    for name, (x, req, inputs) in cases.items():
+        reg = pipeline.ModelRegistry(device=x.device)
+
+        def run():
+            for _ in range(steps):
+                pipeline.apply_image(x, req, inputs, reg).cpu()
+
+        run()  # warm-up
+        with _layer_spans(targets) as spans:
+            run()
+        torch.cuda.synchronize()
+        layer_ms = {label: sum(s.elapsed_time(e) for s, e in pairs) / steps
+                    for label, pairs in spans.items()}
+        out[name] = {"layer_ms_per_call": layer_ms, **_profile(
+            run, steps, trace_path and f"{os.path.splitext(trace_path)[0]}_{name}.json")}
+    return {"profile": "effects through the pipeline: pixel_art face.jpg 1024², palette of "
+                       "10 by k-means from picasso2.png, edges at 50; color_palette sea.png "
+                       "962x660 to black_white_gradient.jpg 5001x2916", **out}
+
+
 def _main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("gatys", "sam", "text-location"), default="gatys")
+    ap.add_argument("--path", choices=("gatys", "sam", "text-location", "effects"),
+                    default="gatys")
     ap.add_argument("--size", type=int, default=512, help="Gatys image side")
     ap.add_argument("--steps", type=int, default=30,
-                    help="steps (Gatys) or calls (SAM, text-location)")
+                    help="steps (Gatys) or calls (SAM, text-location, effects)")
     ap.add_argument("--trace", help="write a Chrome trace here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -271,14 +322,16 @@ def _main() -> None:
     if args.path == "text-location":
         print(json.dumps(_text_location(args.steps, args.trace)))
         return
+    if args.path == "effects":
+        print(json.dumps(_effects(args.steps, args.trace)))
+        return
 
     from tbist_tpu_torch.optimize import gatys
     from tbist_tpu_torch.utils.config import GatysConfig
     from tbist_tpu_torch.utils.imageio import load_image, to_device
     from tbist_tpu_torch.weights import vgg as vgg_weights
 
-    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    imgs = [to_device(load_image(os.path.join(root, p)), bucket=32, max_side=args.size)
+    imgs = [to_device(load_image(os.path.join(_ROOT, p)), bucket=32, max_side=args.size)
             for p in ("data/content_imgs/boat.jpg", "data/style_imgs/starry_night.jpg")]
     params = vgg_weights.get_params()
     cfg = GatysConfig(num_steps=args.steps)

@@ -439,12 +439,23 @@ def test_cli_resume_dir_is_ignored_where_jax_ignores_it(tmp_path):
     assert rc == 0 and out.exists()
 
 
-def test_cli_resume_dir_exits_2_where_jax_would_resume(tmp_path, capsys):
+def test_cli_resume_dir_exits_2_where_jax_would_resume(tmp_path):
+    """Where the JAX CLI resumes (--style-transfer, --image, --style), the
+    port's does too and exits 0: a second call with more steps resumes at
+    the first's last step and writes the new last step. (The name is kept
+    from when the port refused this case with exit 2.)"""
     content, style = _small_images(tmp_path)
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["--resume-dir", str(tmp_path / "d"), "--style-transfer", "--image", content,
-                  "--style", style, "--device", "cpu", "--out", str(tmp_path / "o.png")])
-    assert exc.value.code == 2 and "item 9" in capsys.readouterr().err
+    argv = ["--resume-dir", str(tmp_path / "d"), "--style-transfer", "--image", content,
+            "--style", style, "--device", "cpu", "--out", str(tmp_path / "o.png"),
+            "--segment-steps", "2"]
+    assert cli.main(argv + ["--steps", "2"]) == 0
+    assert os.listdir(tmp_path / "d") == ["step_2"]
+    metrics = RunMetrics()
+    assert cli.main(argv + ["--steps", "3"], metrics=metrics) == 0
+    assert sorted(os.listdir(tmp_path / "d")) == ["step_2", "step_3"]
+    assert metrics.extra == {"resumed_at_step": 2, "segments": 1}
+    assert len(metrics.loss_history) == 1
+    assert np.asarray(Image.open(tmp_path / "o.png")).shape == (64, 64, 3)
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

@@ -18,7 +18,7 @@ from tbist_tpu_torch import api, cli
 from tbist_tpu_torch.compose import pipeline
 from tbist_tpu_torch.optimize import gatys as tgatys
 from tbist_tpu_torch.utils import imageio as tio
-from tbist_tpu_torch.utils.config import EffectRequest, GatysConfig
+from tbist_tpu_torch.utils.config import DepthConfig, EffectRequest, GatysConfig
 from tbist_tpu_torch.utils.logging import RunMetrics
 from tbist_tpu_torch.utils.precision import full_f32
 from tbist_tpu_torch.weights.vgg import from_jax_params
@@ -88,9 +88,12 @@ def test_random_init_and_channel_attention():
                           device="cpu")
     torch.testing.assert_close(a, b, rtol=0, atol=0)  # seeded
     assert not torch.allclose(a, c, atol=1e-3)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tgatys.stylize(tc, [tc], dataclasses.replace(cfg, channel_attention=True), TPARAMS,
-                       device="cpu")
+    ca = dataclasses.replace(cfg, channel_attention=True)
+    d, hist = tgatys.stylize(tc, [tc], ca, TPARAMS, device="cpu")
+    e, _ = tgatys.stylize(tc, [tc], ca, TPARAMS, device="cpu")
+    torch.testing.assert_close(d, e, rtol=0, atol=0)  # the SE weights are seeded too
+    assert d.shape == tc.shape and bool(torch.isfinite(hist).all())
+    assert not torch.allclose(a, d, atol=1e-4)  # the attention changes the result
 
 
 def test_full_f32_restores_tf32_flags():
@@ -123,8 +126,17 @@ def test_pipeline_stages():
     out = pipeline.apply_image(tc, req, pipeline.EffectInputs(style_image=tc), reg, metrics)
     assert out.shape == tc.shape and len(metrics.loss_history) == 2
     assert "gatys" in metrics.timings_s and metrics.degraded == []
-    with pytest.raises(NotImplementedError, match="item 11"):
-        pipeline.apply_image(tc, dataclasses.replace(req, grayscale=True), None, reg)
+    # stage 1 runs first, and without a location mask stage 4 takes its output
+    gray = pipeline.apply_image(tc, dataclasses.replace(req, grayscale=True),
+                                pipeline.EffectInputs(style_image=tc), reg)
+    gray_in = pipeline.apply_image(tc, EffectRequest(grayscale=True), None, reg)
+    torch.testing.assert_close(
+        gray, pipeline.apply_image(gray_in, req, pipeline.EffectInputs(style_image=tc), reg))
+    alone = pipeline.apply_image(tc, EffectRequest(grayscale=True), None, reg)
+    torch.testing.assert_close(alone, tc @ torch.tensor([0.299, 0.587, 0.114])[:, None]
+                               .expand(3, 3))
+    with pytest.raises(NotImplementedError, match="items 25-27"):
+        pipeline.apply_image(tc, dataclasses.replace(req, depth=DepthConfig()), None, reg)
 
 
 def test_cli_drives_the_port_on_cpu(tmp_path):
@@ -139,14 +151,31 @@ def test_cli_drives_the_port_on_cpu(tmp_path):
     assert np.asarray(Image.open(out)).shape == (64, 64, 3)
 
 
-# --aot-cache is a no-op and --resume-dir counts only where the JAX CLI
-# resumes (tests/test_torch_dino_sam.py): here, with --style-transfer --style
+# --aot-cache is a no-op, and --resume-dir counts only where the JAX CLI
+# resumes (tests/test_torch_dino_sam.py)
 @pytest.mark.parametrize("flag", [["--video", "x.mp4"], ["--text-style", "mosaic"],
-                                  ["--pixel-art"], ["--depth", "mip"], ["--grayscale"],
-                                  ["--resume-dir", "d", "--style-transfer", "--style", STARRY],
-                                  ["--channel-attention"]])
+                                  ["--depth", "mip"], ["--text-texture", "fire"]])
 def test_cli_unported_flags_exit_2(flag, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.main(["--image", BOAT, "--out", "o.png", "--device", "cpu", *flag])
     assert exc.value.code == 2
     assert "not ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", [["--pixel-art"], ["--grayscale"],
+                                  ["--resume-dir", "{tmp}/d", "--style-transfer", "--style",
+                                   "{s}", "--steps", "2", "--segment-steps", "1"],
+                                  ["--channel-attention", "--style-transfer", "--style", "{s}",
+                                   "--steps", "2"]])
+def test_cli_ported_flags_run_on_cpu(flag, tmp_path):
+    content, style = tmp_path / "c.png", tmp_path / "s.png"
+    Image.open(BOAT).convert("RGB").resize((64, 64)).save(content)
+    Image.open(STARRY).convert("RGB").resize((64, 64)).save(style)
+    flag = [f.format(tmp=tmp_path, s=style) for f in flag]
+    out = tmp_path / "o.png"
+    metrics = RunMetrics()
+    assert cli.main(["--image", str(content), "--out", str(out), "--device", "cpu", *flag],
+                    metrics=metrics) == 0
+    assert np.asarray(Image.open(out)).shape == (64, 64, 3)
+    if "--style-transfer" in flag:
+        assert len(metrics.loss_history) == 2
