@@ -41,7 +41,16 @@ Phases, each fatal:
    call on the CPU and driven through ``cli.main``; k-means twice on the
    card (bitwise equal) and against the CPU; the Gatys path with
    ``--channel-attention``; and ``--resume-dir``: half the steps in two
-   segments, then a second call that resumes and runs the other two.
+   segments, then a second call that resumes and runs the other two;
+10. text-style path: the feed-forward text style through the pipeline on
+   boat.jpg at 512² (seeded Ghiasi and CLIP-MLP, the prompt-seeded
+   embedding), bf16 and f32, timed with its host syncs counted, against the
+   CPU, and a batch of 8 prompts; the CLIP text tower and T5-base
+   (greedy ``generate``) at full width on torch-seeded weights against the
+   CPU; ``cli.main --text-style`` (its PNG equal to the pipeline's) and the
+   full chain with ``--text-location`` and ``--text-texture`` (fallback
+   mask, glyph stencil); the texture-only ``api.apply_image(None, ...)``;
+   and the full chain with the seeded DINO+SAM extractor (K4 4 times).
 
 Every launch counter is zeroed just before each path and read just after.
 It prints one JSON line per kernel, shape and dtype, then the card's
@@ -102,6 +111,11 @@ EFFECT_RUNS = {
     "grayscale_color_palette_sunset": (_SEA, ["--grayscale", "--color-palette", _SUNSET]),
 }
 EFFECT_ITERS = 5
+# the text-style path: the prompts, and the calls each time is the median of
+STYLE_PROMPT = "mosaic"
+TEXTURE_PROMPT = "fire"
+STYLE_ITERS = 10
+T5_MAX_LEN = 16
 PIXEL_TOL = 1e-3  # share of pixels two computations of pixel art may disagree on
 SPIN_HZ = 2e9  # cycles per second of torch.cuda._sleep: at most the H100's 1.98 GHz SM clock
 
@@ -687,7 +701,8 @@ def sync_sites(fn):
 
 def run_text_location_path(device, smi: str, sam_params):
     """Phase 8: the text→mask chain at full width on seeded weights.
-    Returns ({kernel: launches over the phase}, metrics)."""
+    Returns ({kernel: launches over the phase}, metrics, the chain's mask
+    extractor)."""
     import numpy as np
     import torch
     from PIL import Image
@@ -854,7 +869,7 @@ def run_text_location_path(device, smi: str, sam_params):
                     "degraded": run.degraded}))
     if rc != 0 or "mask_fallback" not in run.degraded or shape != (SIZE, SIZE, 3):
         raise AssertionError(f"cli --text-location: rc {rc}, degraded {run.degraded}")
-    return total, metrics
+    return total, metrics, dino_sam.make_mask_extractor(dino, sam_params, vocab)
 
 
 def _effect_inputs(image: str, flags, device):
@@ -1010,6 +1025,240 @@ def run_effects_path(device, smi: str):
     return total, metrics
 
 
+def _host_ms(fn, iters: int):
+    """Median host ms of ``fn()`` (which ends in a read-back) over ``iters``
+    calls after two warm-up calls, and the last output."""
+    import numpy as np
+
+    for _ in range(2):
+        out = fn()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), times, out
+
+
+@contextlib.contextmanager
+def _env(name: str, value: str):
+    saved = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(name)
+        else:
+            os.environ[name] = saved
+
+
+def run_text_style_path(device, smi: str, mask_extractor):
+    """Phase 10: the feed-forward text style and the emoji texture. Ghiasi
+    through the pipeline at 512² (bf16 and f32, batch 8), the CLIP text
+    tower and T5-base at full width on torch-seeded weights, the CLI and the
+    texture-only API call, pixel art and Reinhard under the texture stencil
+    against the CPU, and the full chain with the seeded DINO+SAM
+    ``mask_extractor``. Returns ({kernel: launches over the phase}, metrics)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from tbist_tpu_torch import api, cli, kernels
+    from tbist_tpu_torch.compose import pipeline
+    from tbist_tpu_torch.effects import text_transfer as tt
+    from tbist_tpu_torch.models import clip_text, sam, t5
+    from tbist_tpu_torch.utils import degraded
+    from tbist_tpu_torch.utils.config import (EffectRequest, MaskCompositeConfig,
+                                              PixelArtConfig, TextEffectConfig)
+    from tbist_tpu_torch.utils.imageio import (from_device, load_image, to_device,
+                                               to_uint8_device, tree_to)
+    from tbist_tpu_torch.utils.logging import RunMetrics
+    from tbist_tpu_torch.utils.precision import full_f32
+
+    cpu = torch.device("cpu")
+    boat = os.path.join(ROOT, "data/content_imgs/boat.jpg")
+    host = to_device(load_image(boat), device=cpu)
+    x = host.to(device)
+    req = EffectRequest(text=TextEffectConfig(style_prompt=STYLE_PROMPT))
+    reg = pipeline.ModelRegistry(device=device)
+    metrics = {}
+
+    def call():
+        return pipeline.apply_image(x, req, None, reg).cpu()
+
+    # 1. Ghiasi at 512², bf16 (the default) then f32, each the median of
+    # STYLE_ITERS pipeline calls ending in the output's read-back
+    kernels.reset_launch_counts()
+    call()  # warm-up: resolves the weights and the embedding
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    metrics["text_style_ms"], metrics["text_style_ms_all"], out = _host_ms(call, STYLE_ITERS)
+    metrics["peak_bytes_of_call"] = torch.cuda.max_memory_allocated() - held
+    again, _, sites = sync_sites(call)
+    metrics["host_syncs"], metrics["host_sync_sites"] = len(sites), sites
+    with _env("TBIST_GHIASI_BF16", "0"):
+        metrics["text_style_f32_ms"], metrics["text_style_f32_ms_all"], out32 = _host_ms(
+            call, STYLE_ITERS)
+        want32 = pipeline.apply_image(host, req, None, pipeline.ModelRegistry(device=cpu))
+    # batch 8: eight prompts over the same image, one batched call
+    prompts = [STYLE_PROMPT, "fire", "water", "boat", "a painting of flames", "mosaic tiles",
+               "starry night", "ink"]
+    xb = x.expand(len(prompts), -1, -1, -1).contiguous()
+    batch_ms, _, _ = _host_ms(lambda: tt.perform_transfer_batch(xb, prompts).cpu(), STYLE_ITERS)
+    metrics["batch8_ms_per_image"] = batch_ms / len(prompts)
+    emb_card = tt._pooled_embedding(STYLE_PROMPT, tt.fallback_text_embedding, device).cpu()
+    fallback = tt.fallback_text_embedding(STYLE_PROMPT)
+    levels = int((to_uint8_device(out).int() - to_uint8_device(out32).int()).abs().max())
+    metrics.update({
+        "image": list(out.shape), "bf16_vs_f32_max_uint8_levels": levels,
+        "card_f32_vs_cpu_f32_max_abs": float((out32 - want32).abs().max()),
+        "repeat_bitwise_equal": bool(torch.equal(out, again)),
+        "embedding_card_vs_numpy_max_abs": float((emb_card - fallback).abs().max()),
+        "degraded": degraded.flags_for(["text_transfer"]),
+    })
+    counts = kernels.launch_counts()
+    _expect_launches(counts)  # no kernel of the port is on this path
+    log(json.dumps({"text_style_path": f"pipeline text style, boat.jpg 512², prompt "
+                    f"{STYLE_PROMPT!r}, seeded Ghiasi + CLIP-MLP, prompt-seeded embedding",
+                    **metrics, "card": smi}))
+    if not (levels <= 1 and metrics["card_f32_vs_cpu_f32_max_abs"] <= 1e-4
+            and metrics["repeat_bitwise_equal"] and bool(torch.isfinite(out).all())
+            and metrics["embedding_card_vs_numpy_max_abs"] <= 1e-6
+            and out.shape == (1, SIZE, SIZE, 3)):
+        raise AssertionError(f"text style: {metrics}")
+
+    # 2. the CLIP text tower and T5-base at full width, torch-seeded
+    gen = torch.Generator().manual_seed(0)
+    tower_cpu = clip_text.init_params(gen)
+    tower = tree_to(tower_cpu, device)
+    tokens = np.zeros((1, clip_text.CONTEXT), np.int64)
+    tokens[0, :6] = [49406, 320, 11281, 539, 3293, 49407]  # sot, 4 words, eot
+    toks = torch.from_numpy(tokens)
+    with full_f32():
+        clip_ms, _, emb = _host_ms(lambda: clip_text.encode_tokens(tower, toks.to(device)).cpu(),
+                                   STYLE_ITERS)
+        emb_cpu = clip_text.encode_tokens(tower_cpu, toks)
+    clip_rel = float((emb - emb_cpu).abs().max() / emb_cpu.abs().max())
+    del tower, tower_cpu
+    # seeded T5-base; as in tests/test_torch_t5.py the decoder's output
+    # projections are scaled by 3, so that the greedy decode does not repeat
+    # its start token and the card-vs-CPU token check has tokens to compare
+    t5_cpu = t5.init_params(torch.Generator().manual_seed(0), t5.BASE)
+    for layer in t5_cpu["decoder"]:
+        for k in ("self", "cross"):
+            layer[k]["o"] *= 3
+        layer["mlp"]["wo"] *= 3
+    t5_card = tree_to(t5_cpu, device)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(2, t5.BASE.vocab, (1, 20)))
+    mask = torch.ones(1, 20)
+    ids_card, mask_card = ids.to(device), mask.to(device)
+    kw = dict(max_len=T5_MAX_LEN)
+    t5_ms, _, tokens_card = _host_ms(
+        lambda: t5.generate(t5_card, t5.BASE, ids_card, mask_card, **kw).cpu(), STYLE_ITERS)
+    _, _, loop_sites = sync_sites(lambda: t5.generate(t5_card, t5.BASE, ids_card, mask_card, **kw))
+    tokens_cpu = t5.generate(t5_cpu, t5.BASE, ids, mask, **kw)
+    del t5_card, t5_cpu
+    models = {"clip_text_ms": clip_ms, "clip_card_vs_cpu_rel": clip_rel,
+              "t5_generate_ms": t5_ms, "t5_tokens": tokens_card[0].tolist(),
+              "t5_tokens_equal_cpu": bool(torch.equal(tokens_card, tokens_cpu)),
+              "t5_host_syncs_in_generate": len(loop_sites), "t5_sync_sites": loop_sites}
+    log(json.dumps({"text_models": "CLIP ViT-B/32 text tower (12x512) and T5-base (12+12x768, "
+                    f"vocab 32128) on torch-seeded weights; greedy generate max_len {T5_MAX_LEN} "
+                    "from 20 ids", **models, "card": smi}))
+    metrics.update({k: models[k] for k in ("clip_text_ms", "t5_generate_ms")})
+    if not (clip_rel <= 1e-4 and models["t5_tokens_equal_cpu"] and not loop_sites):
+        raise AssertionError(f"text models: {models}")
+
+    # 3. the CLI: the text style alone (its PNG equals the pipeline's), the
+    # full chain with the fallback mask and the glyph stencil, and the
+    # texture-only API call with no input image
+    cli_runs = {}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    for name, flags in (("style", ["--text-style", STYLE_PROMPT]),
+                        ("chain", ["--text-style", STYLE_PROMPT, "--text-location", TEXT_PROMPT,
+                                   "--text-texture", TEXTURE_PROMPT])):
+        out_path = os.path.join(ROOT, "build", f"smoke_text_{name}.png")
+        run = RunMetrics()
+        rc = cli.main(["--image", boat, "--out", out_path, *flags, "--device", device.type],
+                      metrics=run)
+        png = np.asarray(Image.open(out_path))
+        cli_runs[name] = {"rc": rc, "image": list(png.shape), "degraded": run.degraded}
+        if name == "style":
+            cli_runs[name]["pixels_differing_from_pipeline"] = int(
+                (png != np.asarray(from_device(out))).any(-1).sum())
+    run = RunMetrics()
+    stencil = np.asarray(api.apply_image(
+        None, EffectRequest(text=TextEffectConfig(texture_prompt=TEXTURE_PROMPT)), metrics=run,
+        device=device))
+    cli_runs["texture_only_api"] = {"image": list(stencil.shape), "degraded": run.degraded,
+                                    "share_set": float((stencil > 0).mean())}
+    counts = kernels.launch_counts()
+    _expect_launches(counts)
+    log(json.dumps({"text_style_cli": cli_runs}))
+    chain_flags = {"ghiasi_seeded", "clip_text_fallback", "mask_fallback", "emoji_fallback"}
+    if not (cli_runs["style"]["rc"] == 0 and cli_runs["style"]["pixels_differing_from_pipeline"] == 0
+            and cli_runs["chain"]["rc"] == 0 and chain_flags <= set(cli_runs["chain"]["degraded"])
+            and cli_runs["chain"]["image"] == [SIZE, SIZE, 3]
+            and cli_runs["texture_only_api"]["image"] == [172, 172, 3]
+            and "emoji_fallback" in run.degraded):
+        raise AssertionError(f"text-style CLI: {cli_runs}")
+
+    # 3b. the texture branches of _masked_apply on the card: pixel art and
+    # Reinhard run on the original image and are composited through the
+    # stencil, inside the fallback location mask and over the whole frame,
+    # with composite values other than the text config's emoji ones; each
+    # against the same request on the CPU
+    sunset = to_device(load_image(os.path.join(ROOT, "data/style_imgs/sunset.png")), device=cpu)
+    comp = MaskCompositeConfig(blur_strength=31, step_size_multiplier=0.8, style_strength=1.2)
+    texture_runs = {}
+    for name, text, effect in (
+            ("location+texture, pixel art",
+             TextEffectConfig(location_prompt=TEXT_PROMPT, texture_prompt=TEXTURE_PROMPT),
+             {"pixel_art": PixelArtConfig(pixel_size=0.3)}),
+            ("texture, Reinhard", TextEffectConfig(texture_prompt=TEXTURE_PROMPT),
+             {"color_palette": True})):
+        treq = EffectRequest(text=text, composite=comp, **effect)
+        card_out = pipeline.apply_image(
+            x, treq, pipeline.EffectInputs(color_palette_image=sunset.to(device)), reg).cpu()
+        cpu_out = pipeline.apply_image(
+            host, treq, pipeline.EffectInputs(color_palette_image=sunset),
+            pipeline.ModelRegistry(device=cpu))
+        diff = (card_out - cpu_out).abs()
+        texture_runs[name] = {
+            "image": list(card_out.shape), "max_abs": float(diff.max()),
+            "share_over_1e-4": float((diff.amax(-1) > 1e-4).float().mean()),
+            "share_unchanged": float(((card_out - x.cpu()).abs().amax(-1) < 1e-6)
+                                     .float().mean())}
+    counts = kernels.launch_counts()
+    _expect_launches(counts)
+    log(json.dumps({"text_texture_masked_apply": texture_runs}))
+    if not all(r["image"] == [1, SIZE, SIZE, 3] and r["share_over_1e-4"] <= MASK_TOL
+               and 0 < r["share_unchanged"] < 1 for r in texture_runs.values()):
+        raise AssertionError(f"texture branches of _masked_apply: {texture_runs}")
+
+    # 4. the full chain with the seeded DINO+SAM extractor: K4 runs 4 times
+    # in its one extract_mask call
+    chain_reg = pipeline.ModelRegistry(device=device, mask_extractor=mask_extractor)
+    chain_req = EffectRequest(text=TextEffectConfig(style_prompt=STYLE_PROMPT,
+                                                    location_prompt=TEXT_PROMPT,
+                                                    texture_prompt=TEXTURE_PROMPT))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    chain = pipeline.apply_image(x, chain_req, None, chain_reg).cpu()
+    chain_ms = (time.perf_counter() - t0) * 1e3
+    counts = kernels.launch_counts()
+    _expect_launches(counts, sam_attn=len(sam.BASE.global_layers))
+    log(json.dumps({"text_style_chain": "style + DINO/SAM location mask + texture stencil, "
+                    "512²", "ms": chain_ms, "image": list(chain.shape), "launches": counts}))
+    if not (chain.shape == (1, SIZE, SIZE, 3) and bool(torch.isfinite(chain).all())):
+        raise AssertionError(f"text-style chain output {tuple(chain.shape)}")
+    metrics["chain_ms"] = chain_ms
+    return counts, metrics
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
@@ -1028,11 +1277,15 @@ SOURCES = {
 }
 # the paths each kernel runs on (text-location: K4 in SAM's encoder behind
 # DINO, K1 and K3 where stage 4 runs under the location mask; effects: K1
-# and K3 under channel attention and in the resumed segments)
+# and K3 under channel attention and in the resumed segments; text-style:
+# K4 where the style is composited under a DINO+SAM location mask)
 PATHS = {"gram_fwd": "gatys, text-location, effects",
          "gram_bwd": "gatys, text-location, effects",
          "pool_bwd": "none", "relu_pool_bwd": "gatys, text-location, effects",
-         "sam_attn": "sam, text-location"}
+         "sam_attn": "sam, text-location, text-style"}
+
+
+T0 = time.perf_counter()
 
 
 def main() -> int:
@@ -1095,7 +1348,8 @@ def main() -> int:
         check_mask_ops(device, mask)
 
     with phase("text-location path"):
-        text_counts, text_metrics = run_text_location_path(device, smi, sam_params)
+        text_counts, text_metrics, chain_extractor = run_text_location_path(device, smi,
+                                                                            sam_params)
         log(f"text-location path: extract_mask {text_metrics['text_mask_ms']:.2f} ms (median), "
             f"dino {text_metrics['dino_ms']:.2f} ms, {text_metrics['boxes_kept']} boxes kept, "
             f"max_memory_allocated {text_metrics['max_memory_allocated']} bytes, host syncs "
@@ -1112,11 +1366,22 @@ def main() -> int:
             f"{', '.join(f'{r:.2f}' for r in effect_metrics['resume_iters_per_sec'])} iters/s; "
             f"on {smi}")
 
+    with phase("text-style path"):
+        style_counts, style = run_text_style_path(device, smi, chain_extractor)
+        log(f"text-style path: text_style_ms {style['text_style_ms']:.2f} (bf16), "
+            f"{style['text_style_f32_ms']:.2f} (f32), batch 8 "
+            f"{style['batch8_ms_per_image']:.2f} ms per image, {style['host_syncs']} host syncs, "
+            f"peak {style['peak_bytes_of_call']} bytes above what was held; clip_text_ms "
+            f"{style['clip_text_ms']:.2f}, t5_generate_ms {style['t5_generate_ms']:.2f}; full "
+            f"chain {style['chain_ms']:.1f} ms; on {smi}")
+    del chain_extractor
+
     launches_by_path = {
         "gatys": {k: v for k, v in counts.items() if k != "sam_attn"},
         "sam": {"sam_attn": counts["sam_attn"]},
         "text-location": text_counts,
         "effects": effect_counts,
+        "text-style": style_counts,
     }
     work = {
         "gatys": "one step of the Gatys path at 512px, f32: the sum over its shapes",
@@ -1135,6 +1400,7 @@ def main() -> int:
             "work": work["sam" if kname == "sam_attn" else "gatys"],
         })
     log(f"conv output channels-last at every style layer: {conv_cl}")
+    log(f"total seconds {time.perf_counter() - T0:.1f}")
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -10,7 +10,8 @@ import numpy as np
 import torch
 from PIL import Image
 
-from tbist_tpu_torch.compose.pipeline import EffectInputs, ModelRegistry, apply_image as _apply
+from tbist_tpu_torch.compose.pipeline import EffectInputs, ModelRegistry, record_degraded
+from tbist_tpu_torch.compose.pipeline import apply_image as _apply
 from tbist_tpu_torch.utils.config import (  # re-export for users
     ColorPaletteConfig,
     DepthConfig,
@@ -61,6 +62,10 @@ def apply_image(
     device = resolve_device(device)
     x = _as_device(image, device)
     if x is None:
+        t = request.text
+        if t is not None and t.texture_prompt and not t.style_prompt and not t.location_prompt:
+            return _texture_only(t.texture_prompt, registry or ModelRegistry(device=device),
+                                 metrics)
         return None
     inputs = EffectInputs(
         style_image=_as_device(style_image, device),
@@ -73,6 +78,17 @@ def apply_image(
     if out is None:
         return None
     return from_device(out)
+
+
+def _texture_only(prompt: str, registry: ModelRegistry,
+                  metrics: Optional[RunMetrics]) -> Image.Image:
+    """A texture request with no input image: the emoji stencil's
+    visualization (reference app.py:252-263)."""
+    mask = registry.ensure("emoji_extractor").emoji_extractor(prompt)
+    if metrics is not None:
+        record_degraded(metrics, registry, ["emoji_extractor"])
+    m = torch.as_tensor(mask).float()
+    return from_device(m[None, ..., None].expand(1, *m.shape, 3))
 
 
 def apply_video(*args, **kwargs):

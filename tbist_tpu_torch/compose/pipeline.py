@@ -3,12 +3,13 @@
 The JAX package chains seven stages in the reference order (app.py:157-735):
 grayscale → text → pixel art → style transfer → style mixing → color
 palette → depth, where each heavyweight effect repeats a 3-way text-mask
-dispatch (``_masked_apply``). The port runs stage 1 (grayscale), the text
-stage's location mode (a GroundingDINO+SAM mask, or its fallback), stage 3
-(pixel art), stages 4 and 5 (style transfer and mixing) and stage 6 (color
-palette), stages 3-6 under the location mask when there is one. A request
-that needs the text stage's style or texture mode, or stage 7 (depth),
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+dispatch (``_masked_apply``). The port runs stages 1 to 6: grayscale; the
+text stage in all its modes (the feed-forward text style, a GroundingDINO+SAM
+location mask or its fallback, an emoji texture stencil, and their
+composites); pixel art; style transfer and mixing; color palette; stages
+3-6 under the text masks when there are some. A request that needs stage 7
+(depth) raises ``NotImplementedError`` naming the ROADMAP items that port
+it.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from tbist_tpu_torch.effects import style as style_fx
 from tbist_tpu_torch.ops import masks as mask_ops
 from tbist_tpu_torch.utils import degraded
 from tbist_tpu_torch.utils.config import EffectRequest, TextEffectConfig
+from tbist_tpu_torch.utils.imageio import upload
 from tbist_tpu_torch.utils.logging import RunMetrics
 
 
@@ -33,6 +35,8 @@ class ModelRegistry:
 
     vgg_params: Any = None
     device: Any = "cuda"
+    # (image NHWC on the device, prompt) -> stylized NHWC
+    text_transfer: Optional[Callable] = None
     # (image, prompt) -> (H, W) bool mask. The image is NHWC float [0, 1] on
     # the device, or (H, W, 3) uint8 on the host when the mask preprocess ran
     # (effects.masking.extract_location_mask); extractors take both
@@ -40,6 +44,8 @@ class ModelRegistry:
     # (frames (B, H, W, 3) uint8, prompt) -> (B, H, W) bool masks: one DINO
     # and one SAM encoder call per chunk (the masked video lane's extractor)
     batch_mask_extractor: Optional[Callable] = None
+    # (prompt) -> (He, We) bool stencil, anywhere (the pipeline moves it)
+    emoji_extractor: Optional[Callable] = None
     # fields the lazy loaders resolved (vs caller-injected) — degraded
     # flags only apply to these, so a caller supplying real weights is
     # never reported as degraded by an earlier fallback in this process
@@ -48,10 +54,9 @@ class ModelRegistry:
     def ensure(self, *names: str) -> "ModelRegistry":
         """Lazily resolve only the models a request actually needs."""
         for name in names:
-            if name not in ("vgg_params", "mask_extractor", "batch_mask_extractor"):
+            if name == "depth_estimator":
                 raise NotImplementedError(
-                    f"model {name!r} is not ported yet (ROADMAP Queue 1: text_transfer items "
-                    "17-19, emoji_extractor item 24, depth_estimator items 25-27)")
+                    "model 'depth_estimator' is not ported yet (ROADMAP Queue 1, items 25-27)")
             if getattr(self, name) is not None:
                 continue
             self.resolved_by_loader.add(name)
@@ -59,14 +64,15 @@ class ModelRegistry:
                 from tbist_tpu_torch.weights import vgg as vgg_weights
 
                 self.vgg_params = vgg_weights.get_params(device=self.device)
-            elif name == "mask_extractor":
-                from tbist_tpu_torch.effects import masking
+            elif name == "text_transfer":
+                from tbist_tpu_torch.effects import text_transfer as tt
 
-                self.mask_extractor = masking.default_mask_extractor(self.device)
+                self.text_transfer = tt.perform_transfer
             else:
                 from tbist_tpu_torch.effects import masking
 
-                self.batch_mask_extractor = masking.default_batch_mask_extractor(self.device)
+                loader = getattr(masking, f"default_{name}")
+                setattr(self, name, loader(self.device))
         return self
 
 
@@ -86,6 +92,7 @@ class _TextState:
     """Masks computed once by the text stage and reused downstream."""
 
     loc_mask: Optional[torch.Tensor] = None  # (H, W) bool
+    emoji_mask: Optional[torch.Tensor] = None  # (He, We) bool
     mode: str = "none"  # none|transfer|location|texture|location+texture
 
 
@@ -106,23 +113,40 @@ def _text_mode(cfg: Optional[TextEffectConfig]) -> str:
 def _masked_apply(effect_fn: Callable[[torch.Tensor], torch.Tensor], original: torch.Tensor,
                   current: torch.Tensor, state: _TextState, req: EffectRequest) -> torch.Tensor:
     """The text-mask dispatch around a downstream effect: under a location
-    mask the effect runs on the ORIGINAL image and is composited by the
-    mask; otherwise it runs on the running output. The texture modes'
-    ``emoji_composite`` branches come with item 24 (``check_ported`` refuses
-    a texture prompt until then)."""
+    or texture mask the effect runs on the ORIGINAL image and is composited
+    by the mask (``composite_by_mask`` for a location, ``emoji_composite``
+    for a texture, over the whole frame without a location); otherwise it
+    runs on the running output."""
+    comp = req.composite
     if state.mode == "location":
         styled = effect_fn(original)
         return mask_ops.composite_by_mask(original, styled, state.loc_mask,
-                                          int(req.composite.edge_smoothing))
+                                          int(comp.edge_smoothing))
+    if state.mode in ("texture", "location+texture"):
+        return _texture_composite(original, effect_fn(original), state, comp.blur_strength,
+                                  comp.step_size_multiplier, comp.style_strength)
     return effect_fn(current)
+
+
+def _texture_composite(original: torch.Tensor, styled: torch.Tensor, state: _TextState,
+                       blur: int, step: float, strength: float) -> torch.Tensor:
+    """``emoji_composite`` through the stencil, inside the location mask when
+    there is one and over the whole frame otherwise."""
+    seg = state.loc_mask
+    if seg is None:
+        seg = torch.ones(styled.shape[1:3], dtype=torch.bool, device=styled.device)
+    return mask_ops.emoji_composite(original, styled, seg, state.emoji_mask, blur, step,
+                                    strength)
+
+
+def _visualize(mask: torch.Tensor) -> torch.Tensor:
+    """(H, W) mask -> the (1, H, W, 3) f32 image the reference shows."""
+    m = mask.float()
+    return m[None, ..., None].expand(1, *m.shape, 3)
 
 
 # stage -> the ROADMAP Queue 1 item that ports it
 _UNPORTED_STAGES = (
-    ("text style", lambda r: r.text is not None and bool(r.text.style_prompt),
-     "items 17-19 (feed-forward text style)"),
-    ("text texture", lambda r: r.text is not None and bool(r.text.texture_prompt),
-     "item 24 (T5 emoji texture)"),
     ("depth", lambda r: r.depth is not None, "items 25-27 (depth)"),
 )
 
@@ -139,8 +163,13 @@ def check_ported(req: EffectRequest) -> None:
 def needed_components(req: EffectRequest) -> list:
     """ModelRegistry fields a request will exercise."""
     needed = ["vgg_params"] if req.style_transfer or req.style_mixing else []
-    if req.text is not None and req.text.location_prompt:
-        needed.append("mask_extractor")
+    if req.text is not None:
+        if req.text.style_prompt:
+            needed.append("text_transfer")
+        if req.text.location_prompt:
+            needed.append("mask_extractor")
+        if req.text.texture_prompt:
+            needed.append("emoji_extractor")
     return needed
 
 
@@ -162,9 +191,15 @@ def apply_image(
     try:
         return _apply_stages(image, req, inputs, registry, metrics)
     finally:
-        flags = degraded.flags_for(n for n in needed if n in registry.resolved_by_loader)
-        if flags:
-            metrics.degraded = sorted(set(metrics.degraded) | set(flags))
+        record_degraded(metrics, registry, needed)
+
+
+def record_degraded(metrics: RunMetrics, registry: ModelRegistry, names) -> None:
+    """Add to ``metrics.degraded`` the fallback flags of the models in
+    ``names`` that the registry's loaders resolved (not the injected ones)."""
+    flags = degraded.flags_for(n for n in names if n in registry.resolved_by_loader)
+    if flags:
+        metrics.degraded = sorted(set(metrics.degraded) | set(flags))
 
 
 def _apply_stages(
@@ -174,8 +209,7 @@ def _apply_stages(
     registry: ModelRegistry,
     metrics: RunMetrics,
 ) -> Optional[torch.Tensor]:
-    """Stage 1, the text stage's location mode, then stages 3 to 6 of the
-    reference order (app.py:157-658)."""
+    """Stages 1 to 6 of the reference order (app.py:157-658)."""
     original = image
     output = image
     state = _TextState(mode=_text_mode(req.text))
@@ -184,14 +218,35 @@ def _apply_stages(
     if req.grayscale:
         output = basic.grayscale(output)
 
-    # ---- 2. text effects (app.py:161-282): the location mode ----
-    if state.mode == "location":
-        from tbist_tpu_torch.effects import masking
+    # ---- 2. text effects (app.py:161-282) ----
+    tcfg = req.text
+    if state.mode != "none":
+        if tcfg.location_prompt:
+            from tbist_tpu_torch.effects import masking
 
-        state.loc_mask = masking.extract_location_mask(registry.mask_extractor, original,
-                                                       req.text)
-        m = state.loc_mask.float()  # the mask visualisation
-        output = m[None, ..., None].expand(1, *m.shape, 3)
+            state.loc_mask = masking.extract_location_mask(registry.mask_extractor, original,
+                                                           tcfg)
+        if tcfg.texture_prompt:
+            state.emoji_mask = upload(registry.emoji_extractor(tcfg.texture_prompt),
+                                      original.device)
+        if state.mode == "transfer":
+            styled = registry.text_transfer(original, tcfg.style_prompt)
+            if tcfg.texture_prompt:
+                output = _texture_composite(original, styled, state, tcfg.emoji_blur_strength,
+                                            tcfg.emoji_step_size, tcfg.emoji_style_strength)
+            elif tcfg.location_prompt:
+                output = mask_ops.composite_by_mask(original, styled, state.loc_mask,
+                                                    int(tcfg.edge_smoothing))
+            else:
+                output = styled
+        elif state.mode == "location":
+            output = _visualize(state.loc_mask)
+        elif state.mode == "texture":
+            output = _visualize(state.emoji_mask)
+        else:  # location+texture: the merged mask (app.py:265-282)
+            output = _visualize(mask_ops.merge_content_style_masks(
+                state.loc_mask, state.emoji_mask, tcfg.emoji_blur_strength,
+                tcfg.emoji_step_size))
 
     # ---- 3. pixel art (app.py:284-370) ----
     if req.pixel_art is not None:

@@ -5,8 +5,10 @@ Location masks come from GroundingDINO + SAM (``models.dino_sam``,
 reference text/TextMaskExtractor.py) when their checkpoints and the BERT
 vocab exist, and otherwise from a documented deterministic fallback that
 keeps the pipeline runnable: the border-prior segmentation below, flagged
-``mask_fallback``. Texture stencils (``default_emoji_extractor``) come with
-ROADMAP item 24.
+``mask_fallback``. Texture stencils come from T5-emojilm and the emoji
+font (``models.t5_emoji``, reference text/EmojiMaskExtractor.py) when they
+exist, and otherwise from the prompt's first character drawn with PIL's
+default font, flagged ``emoji_fallback``.
 """
 
 from __future__ import annotations
@@ -44,6 +46,23 @@ def _fallback_location_mask(image, prompt: str, **_kw) -> torch.Tensor:
     thresh = dist.mean() + 0.5 * dist.std()
     device = image.device if isinstance(image, torch.Tensor) else "cpu"
     return torch.from_numpy(dist > thresh).to(device)
+
+
+EMOJI_SIZE = 172  # reference stencil canvas (EmojiMaskExtractor.py:62)
+
+
+def _fallback_emoji_stencil(prompt: str) -> torch.Tensor:
+    """The prompt's first character (upper-cased) as a (172, 172) bool CPU
+    stencil: PIL's default bitmap font drawn at (8, 8) on a white 32×32
+    canvas, scaled up nearest, thresholded at < 255 as the reference
+    thresholds its glyph (EmojiMaskExtractor.py:62-70)."""
+    from PIL import Image, ImageDraw, ImageFont
+
+    char = (prompt.strip() or "*")[0].upper()
+    img = Image.new("L", (32, 32), 255)
+    ImageDraw.Draw(img).text((8, 8), char, 0, font=ImageFont.load_default())
+    big = img.resize((EMOJI_SIZE, EMOJI_SIZE), Image.NEAREST)
+    return torch.from_numpy(np.asarray(big) < 255)
 
 
 def _detection_kwargs(tcfg) -> dict:
@@ -139,3 +158,19 @@ def default_batch_mask_extractor(device="cuda") -> Callable:
             return masks.to(frames.device) if is_tensor else masks
 
         return batch_fallback
+
+
+@functools.lru_cache(maxsize=None)
+def default_emoji_extractor(device="cuda") -> Callable:
+    """prompt -> (172, 172) bool CPU stencil: T5-emojilm on ``device`` and
+    the emoji font when they exist, else the glyph fallback (flagged
+    ``emoji_fallback``). A missing card is not a missing file: it raises."""
+    from tbist_tpu_torch.models import t5_emoji
+
+    try:
+        return t5_emoji.get_emoji_extractor(device)
+    except (OSError, ImportError):
+        degraded.mark("emoji_extractor", "emoji_fallback")
+        logger.warning("emoji extractor: no T5-emojilm weights/font — rasterizing the "
+                       "prompt's first character as the stencil")
+        return _fallback_emoji_stencil

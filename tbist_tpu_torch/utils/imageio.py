@@ -39,6 +39,25 @@ def upload(x: ArrayLike, device: Union[str, torch.device]) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def tree_from_numpy(tree):
+    """A nested dict/list of numpy arrays (the JAX package's parameter
+    trees) -> the same tree of f32 CPU tensors."""
+    if isinstance(tree, dict):
+        return {k: tree_from_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_from_numpy(v) for v in tree]
+    return torch.from_numpy(np.array(tree, np.float32))
+
+
+def tree_to(tree, device):
+    """A nested dict/list of tensors (a parameter tree) moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
 def load_image(path: str) -> Image.Image:
     """Open an image file as RGB PIL (host)."""
     return Image.open(path).convert("RGB")
@@ -135,10 +154,15 @@ def to_device(
     return x.to(dtype)
 
 
+def to_uint8_device(x: torch.Tensor) -> torch.Tensor:
+    """float [0, 1] -> uint8 on the tensor's device, with ``to_uint8``'s
+    semantics (clip(round(x*255)), round half to even as numpy does)."""
+    return torch.clamp(torch.round(x.detach().float() * 255.0), 0, 255).to(torch.uint8)
+
+
 def from_device(x: ArrayLike) -> Image.Image:
     """Device NHWC float -> PIL image (host). A float tensor is quantised to
-    uint8 on its device before the copy, with ``to_uint8``'s semantics
-    (clip(round(x*255)), round half to even as numpy does)."""
+    uint8 on its device before the copy (``to_uint8_device``)."""
     if isinstance(x, torch.Tensor) and x.is_floating_point():
-        x = torch.clamp(torch.round(x.detach().float() * 255.0), 0, 255).to(torch.uint8)
+        x = to_uint8_device(x)
     return to_pil(x)

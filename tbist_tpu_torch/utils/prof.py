@@ -12,12 +12,16 @@ on seeded weights (a 480x640 image, one box), the text-location chain
 ViT-B, the same image, the prompt "boat"), or two cheap effects through
 the pipeline (pixel art on face.jpg with a 10-colour k-means palette of
 picasso2.png and Canny edges; Reinhard colour transfer of sea.png to
-black_white_gradient.jpg)::
+black_white_gradient.jpg), or the feed-forward text style through the
+pipeline (boat.jpg at 512², prompt "mosaic", the seeded Ghiasi weights and
+the prompt-seeded embedding, bf16 activations unless
+``TBIST_GHIASI_BF16=0``)::
 
     python -m tbist_tpu_torch.utils.prof --size 512 --steps 30
     python -m tbist_tpu_torch.utils.prof --path sam --steps 10
     python -m tbist_tpu_torch.utils.prof --path text-location --steps 5
     python -m tbist_tpu_torch.utils.prof --path effects --steps 10
+    python -m tbist_tpu_torch.utils.prof --path text-style --steps 20
 
 It prints one JSON line: device time by kind and of the top kernels per
 step (per call for SAM and text-location), CUDA calls per step that can
@@ -27,7 +31,10 @@ the same length. For text-location it adds each layer's time per call
 (CUDA events around the Swin backbone, the fusion layers, the encoder's and
 the decoder's deformable attention, the whole DINO forward, SAM's encoder
 and its decode), BERT's once per prompt, and the host's thresholding; for
-pixel art, the k-means palette's, the quantizer's and Canny's time per call.
+pixel art, the k-means palette's, the quantizer's and Canny's time per call;
+for the text style, the MLP's, each Ghiasi layer's, the instance norms' and
+the read-back's, and the convolution kernels each Ghiasi layer launches with
+its operands' dtype.
 """
 
 from __future__ import annotations
@@ -305,13 +312,91 @@ def _effects(steps: int, trace_path: Optional[str]) -> Dict:
                        "962x660 to black_white_gradient.jpg 5001x2916", **out}
 
 
+def _text_style(steps: int, trace_path: Optional[str]) -> Dict:
+    from tbist_tpu_torch.compose import pipeline
+    from tbist_tpu_torch.effects import text_transfer
+    from tbist_tpu_torch.models import clip_mlp, ghiasi
+    from tbist_tpu_torch.utils.config import EffectRequest, TextEffectConfig
+    from tbist_tpu_torch.utils.imageio import load_image, to_device
+
+    x = to_device(load_image(os.path.join(_ROOT, "data/content_imgs/boat.jpg")))
+    req = EffectRequest(text=TextEffectConfig(style_prompt="mosaic"))
+    reg = pipeline.ModelRegistry(device=x.device)
+    readback = []
+
+    def call():
+        out = pipeline.apply_image(x, req, None, reg)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = out.cpu()
+        end.record()
+        readback.append((start, end))
+        return out
+
+    def run():
+        for _ in range(steps):
+            call()
+
+    run()  # warm-up
+    readback.clear()
+    targets = [(clip_mlp, "apply", "clip-mlp"),
+               (ghiasi, "_layer", lambda kind, name, *a: f"ghiasi {name}"),
+               (ghiasi, "_instance_norm", "instance norms (inside the layers)")]
+    with _layer_spans(targets) as spans:
+        run()
+    torch.cuda.synchronize()
+    spans["read-back (pageable, 3 MB f32)"] = readback
+    layer_ms = {label: sum(s.elapsed_time(e) for s, e in pairs) / steps
+                for label, pairs in spans.items()}
+    return {"profile": "text-style pipeline call, boat.jpg 512², prompt 'mosaic', "
+                       f"activations {text_transfer.compute_dtype()}",
+            "layer_ms_per_call": layer_ms, "conv_kernels": _conv_kernels(call),
+            **_profile(run, steps, trace_path)}
+
+
+def _conv_kernels(call) -> Dict:
+    """The kernels each Ghiasi convolution launches, by layer, with its
+    operands' dtype: one ``call()`` records every ``ghiasi._conv``'s
+    arguments, then each convolution runs alone under the profiler (inside
+    ``full_f32``, as in the pipeline)."""
+    from tbist_tpu_torch.models import ghiasi
+    from tbist_tpu_torch.utils.precision import full_f32
+
+    labels = [f"{name}.{c}" if kind == "res" else name
+              for kind, name, *_ in ghiasi.LAYERS
+              for c in (("conv1", "conv2") if kind == "res" else ("",))]
+    recorded = []
+    conv = ghiasi._conv
+
+    def record(x, p, pad, stride, dtype):
+        recorded.append((x, p, pad, stride, dtype))
+        return conv(x, p, pad, stride, dtype)
+
+    ghiasi._conv = record
+    try:
+        call()
+    finally:
+        ghiasi._conv = conv
+    out = {}
+    for label, (x, p, pad, stride, dtype) in zip(labels, recorded):
+        with full_f32(), trace() as prof:
+            conv(x, p, pad, stride, dtype)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and kind_of(e.name).startswith("convolution")]
+        out[label] = {"operands": str(dtype).replace("torch.", ""), "input": list(x.shape),
+                      "kernels": [n[:110] for n in names]}
+    return out
+
+
 def _main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("gatys", "sam", "text-location", "effects"),
+    ap.add_argument("--path", choices=("gatys", "sam", "text-location", "effects", "text-style"),
                     default="gatys")
     ap.add_argument("--size", type=int, default=512, help="Gatys image side")
     ap.add_argument("--steps", type=int, default=30,
-                    help="steps (Gatys) or calls (SAM, text-location, effects)")
+                    help="steps (Gatys) or calls (the other paths)")
     ap.add_argument("--trace", help="write a Chrome trace here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -324,6 +409,9 @@ def _main() -> None:
         return
     if args.path == "effects":
         print(json.dumps(_effects(args.steps, args.trace)))
+        return
+    if args.path == "text-style":
+        print(json.dumps(_text_style(args.steps, args.trace)))
         return
 
     from tbist_tpu_torch.optimize import gatys

@@ -153,8 +153,8 @@ def test_cli_drives_the_port_on_cpu(tmp_path):
 
 # --aot-cache is a no-op, and --resume-dir counts only where the JAX CLI
 # resumes (tests/test_torch_dino_sam.py)
-@pytest.mark.parametrize("flag", [["--video", "x.mp4"], ["--text-style", "mosaic"],
-                                  ["--depth", "mip"], ["--text-texture", "fire"]])
+@pytest.mark.parametrize("flag", [["--video", "x.mp4"], ["--depth", "depth_loss"],
+                                  ["--depth", "mip"], ["--video", "x.mp4", "--text-style", "mosaic"]])
 def test_cli_unported_flags_exit_2(flag, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.main(["--image", BOAT, "--out", "o.png", "--device", "cpu", *flag])
