@@ -10,7 +10,7 @@ Phases, each fatal:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every kernel of ``tbist_tpu_torch/csrc`` with ``nvcc``, in parallel;
 3. kernels: each kernel's wrapper at its path's shapes (K1-K3 at 512px, f32
-   and bf16; K4 at the 1024² SAM encoder for one and four images, at a
+   and bf16, and f32 at two lanes as the depth path's batched runs; K4 at the 1024² SAM encoder for one and four images, at a
    ragged 24x40 grid and at SAM's 16x16 grid for a 256 input), held against
    its plain PyTorch version on the same inputs and timed with CUDA events
    beside its bound and a library yardstick; two calls of K1's forward, and
@@ -50,7 +50,19 @@ Phases, each fatal:
    CPU; ``cli.main --text-style`` (its PNG equal to the pipeline's) and the
    full chain with ``--text-location`` and ``--text-texture`` (fallback
    mask, glyph stencil); the texture-only ``api.apply_image(None, ...)``;
-   and the full chain with the seeded DINO+SAM extractor (K4 4 times).
+   and the full chain with the seeded DINO+SAM extractor (K4 4 times);
+11. depth path: Depth-Anything-V2-Small at full width on torch-seeded
+   weights (the forward, and with its input gradient, timed; both against
+   the CPU); depth-loss Gatys through the pipeline with it in the loss
+   graph, 400 steps at 512px, with the host's CPU time a step; at 128px
+   against the CPU, 3 free-running steps, the card's run from a start one
+   ulp away, and the loss and gradient at each of the CPU's iterates; MIP
+   with two layers in the sequential and (at a quarter of the steps) the
+   batched plan, and the batched
+   lanes' losses and gradients against each lane alone; the batched lanes
+   with the depth term; ``cli.main --depth depth_loss`` and ``--depth
+   mip`` (the fallback depth without a checkpoint), each PNG against the
+   pipeline's.
 
 Every launch counter is zeroed just before each path and read just after.
 It prints one JSON line per kernel, shape and dtype, then the card's
@@ -176,17 +188,20 @@ def bound_ms(nbytes: float, flops: float, dtype_name: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def gram_shapes(size: int):
-    return [(1, (size >> k) ** 2, c) for k, c in enumerate(GRAM_CHANNELS)]
+def gram_shapes(size: int, b: int = 1):
+    return [(b, (size >> k) ** 2, c) for k, c in enumerate(GRAM_CHANNELS)]
 
 
-def pool_shapes(size: int):
-    return [(1, size >> k, size >> k, c) for k, c in enumerate(POOL_CHANNELS)]
+def pool_shapes(size: int, b: int = 1):
+    return [(b, size >> k, size >> k, c) for k, c in enumerate(POOL_CHANNELS)]
 
 
 def check_kernels(device, size: int):
     """Phase 3: every kernel against its plain version at the main path's
-    shapes, f32 and bf16. Returns per-step f32 sums per kernel."""
+    shapes: one image in f32 and bf16, and two lanes in f32 (MIP's batched
+    plan and the batched lanes run VGG-19 at N = 2, K1 on (2, H·W, C); the
+    kernels choose their grid and split from the batch). Returns per-step
+    f32 sums per kernel over the one-image shapes."""
     from tbist_tpu_torch.utils.precision import full_f32
 
     with full_f32():  # the plain versions in full f32
@@ -201,7 +216,8 @@ def _check_kernels(device, size: int):
     gen = torch.Generator(device=device).manual_seed(0)
     summary = {}
 
-    def record(name, shape, dtype, got, want, rtol, atol, ms, plain_ms, lib_ms, nbytes, flops):
+    def record(name, shape, dtype, got, want, rtol, atol, ms, plain_ms, lib_ms, nbytes, flops,
+               extra=None):
         err = (got.float() - want.float()).abs()
         tol = atol + rtol * want.float().abs()
         ok = bool(torch.all(err <= tol))
@@ -210,12 +226,12 @@ def _check_kernels(device, size: int):
             "kernel": name, "shape": list(shape), "dtype": str(dtype).split(".")[1],
             "max_abs_err": float(err.max()), "rtol": rtol, "atol": atol, "agree": ok,
             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms": b_ms, "bound_by": b_by, **(extra or {}),
         }
         log(json.dumps(line))
         if not ok:
             raise AssertionError(f"{name} {shape} {dtype}: kernel disagrees with plain version")
-        if dtype == torch.float32:
+        if dtype == torch.float32 and shape[0] == 1:
             s = summary.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                                           "library_ms": 0.0, "bound_ms": 0.0,
                                           "bytes_ms": 0.0, "ops_ms": 0.0})
@@ -226,21 +242,35 @@ def _check_kernels(device, size: int):
             s["bytes_ms"] += nbytes / PEAK_BYTES * 1e3
             s["ops_ms"] += flops / PEAK_FLOPS["float32"] * 1e3
 
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype, lanes in ((torch.float32, 1), (torch.bfloat16, 1), (torch.float32, 2)):
         item = torch.tensor([], dtype=dtype).element_size()
-        for b, n, c in gram_shapes(size):
+        for b, n, c in gram_shapes(size, lanes):
             x = torch.randn((b, n, c), generator=gen, device=device).to(dtype)
             norm = 1.0 / (n * c)
             got = gram.gram_fwd(x, norm)
             if not torch.equal(gram.gram_fwd(x, norm), got):
                 raise AssertionError(f"gram_fwd {(b, n, c)} {dtype}: two calls differ")
-            want = gram.gram_fwd_plain(x, norm)
+
+            def plain(x, b=b, norm=norm):
+                # lane by lane: cuBLAS runs the batched product, whose sums
+                # run over K = H·W up to 262144 terms, without splitting K
+                # (slow, and further from f64 than the kernel); one lane's
+                # product splits K
+                if b == 1:
+                    return gram.gram_fwd_plain(x, norm)
+                return torch.cat([gram.gram_fwd_plain(x[i:i + 1], norm) for i in range(b)])
+
+            want = plain(x)
+            exact = torch.einsum("bnc,bnd->bcd", x.double(), x.double()) * norm
             record("gram_fwd", (b, n, c), dtype, got, want, 1e-5, 1e-5 * float(want.abs().max()),
-                   time_ms(lambda x: gram.gram_fwd(x, norm), (x,)),
-                   time_ms(lambda x: gram.gram_fwd_plain(x, norm), (x,)),
-                   time_ms(lambda x: torch.matmul(x[0].T, x[0]), (x,)),
+                   time_ms(lambda x: gram.gram_fwd(x, norm), (x,)), time_ms(plain, (x,)),
+                   time_ms(lambda x: torch.matmul(x.transpose(1, 2), x), (x,)),
                    # G is symmetric: the upper triangle and diagonal, C(C+1)/2 dot products
-                   n * c * item + c * c * 4, n * c * (c + 1))
+                   b * (n * c * item + c * c * 4), b * n * c * (c + 1),
+                   {"max_abs_err_vs_f64": float((got.double() - exact).abs().max()),
+                    "plain_max_abs_err_vs_f64": float((want.double() - exact).abs().max()),
+                    "batched_plain_max_abs_err_vs_f64": float(
+                        (gram.gram_fwd_plain(x, norm).double() - exact).abs().max())})
             m = torch.randn((b, c, c), generator=gen, device=device) * norm
             m = (m + m.transpose(1, 2)).contiguous()
             got = gram.gram_bwd(x, m)
@@ -252,9 +282,9 @@ def _check_kernels(device, size: int):
                    time_ms(lambda x, m, _: gram.gram_bwd(x, m), args),
                    time_ms(lambda x, m, _: gram.gram_bwd_plain(x, m), args),
                    time_ms(lambda x, _, m2: torch.matmul(x, m2), args),
-                   2 * n * c * item + c * c * 4, 2 * n * c * c)
-            del x, m, args, got, want
-        for shape in pool_shapes(size):
+                   b * (2 * n * c * item + c * c * 4), b * 2 * n * c * c)
+            del x, m, args, got, want, exact
+        for shape in pool_shapes(size, lanes):
             b, h, w, c = shape
             # quarter steps: exact ties in the windows, exact zeros for the relu
             x = (torch.rand(shape, generator=gen, device=device) * 4).round() / 4
@@ -1259,6 +1289,404 @@ def run_text_style_path(device, smi: str, mask_extractor):
     return counts, metrics
 
 
+def _seeded_depth(device):
+    """Depth-Anything-V2-Small on torch-seeded weights (no checkpoint is in
+    the repository): (estimator on ``device``, the same estimator on the
+    CPU, parameter count)."""
+    import functools
+
+    import torch
+
+    from tbist_tpu_torch.models import depth_anything as da
+    from tbist_tpu_torch.utils.imageio import tree_to
+
+    params_cpu = da.init_params(torch.Generator().manual_seed(0))
+    n = sum(t.numel() for t in _leaves(params_cpu))
+    return (functools.partial(da.predict_depth, tree_to(params_cpu, device), da.SMALL),
+            functools.partial(da.predict_depth, params_cpu, da.SMALL), n)
+
+
+def _depth_core_grads(content, device):
+    """d mean(depth) / d x of the seeded Depth Anything at its normalized
+    518² input x (boat.jpg resized as ``predict_depth`` does), on the card
+    and the CPU, in f32 and f64: {"card_f32": ..., "cpu_f64": ...}."""
+    import torch
+
+    from tbist_tpu_torch.models import depth_anything as da
+    from tbist_tpu_torch.ops.losses import normalize
+    from tbist_tpu_torch.utils.imageio import image_resize_bilinear, tree_to
+    from tbist_tpu_torch.utils.precision import full_f32
+
+    size, grid = da.SMALL.input_size, da.SMALL.input_size // da.SMALL.patch
+    x518 = normalize(image_resize_bilinear(content, (size, size)), da.IMAGENET_MEAN,
+                     da.IMAGENET_STD)
+    params = da.init_params(torch.Generator().manual_seed(0))
+    out = {}
+    for name, dev, dtype in (("card_f32", device, torch.float32), ("cpu_f32", None, torch.float32),
+                             ("card_f64", device, torch.float64), ("cpu_f64", None, torch.float64)):
+        dev = dev or torch.device("cpu")
+        p = tree_to(_cast(params, dtype), dev)
+        x = x518.to(dev, dtype).requires_grad_(True)
+        with full_f32():
+            d = da.depth_head(p, da.SMALL, da.encode(p, da.SMALL, x), (grid, grid), (size, size))
+            (out[name],) = torch.autograd.grad(d.mean(), x)
+    return out
+
+
+def _cast(tree, dtype):
+    """A parameter tree with its floating tensors in ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cast(v, dtype) for v in tree)
+    return tree.to(dtype) if tree.is_floating_point() else tree
+
+
+def _depth_term(estimator, image, content, w_depth: float) -> float:
+    """``optimize.gatys_depth``'s depth term of ``image`` against ``content``."""
+    import torch
+
+    from tbist_tpu_torch.ops.losses import depth_loss
+    from tbist_tpu_torch.ops.mip import normalize_depth
+
+    with torch.no_grad():
+        return float(w_depth * depth_loss(normalize_depth(estimator(image)),
+                                          normalize_depth(estimator(content))))
+
+
+def _loss_grad(cfg, vgg, frames, style, images, w_style=None, depth_fn=None):
+    """``gatys.lane_losses`` (the loss of ``gatys.stylize`` and of the
+    batched lanes) and its gradient at ``images``, each lane's targets made
+    from the same lane of ``frames``, on ``images``' device: ((B,) losses,
+    (B, H, W, 3) gradients)."""
+    import torch
+
+    from tbist_tpu_torch.optimize import gatys
+    from tbist_tpu_torch.parallel import batched
+    from tbist_tpu_torch.utils.precision import full_f32
+
+    device = images.device
+    _, cf, tg, sg = batched.init_batch(cfg, vgg, frames, [style], device)
+    td = None
+    if depth_fn is not None and cfg.w_depth > 0:
+        td = batched.depth_targets(depth_fn, frames.to(device))
+    w = cfg.w_style if w_style is None else torch.as_tensor(w_style, device=device)
+    x = images.clamp(0.0, 1.0).requires_grad_(True)
+    with full_f32():
+        loss = gatys.lane_losses(cfg, gatys.params_on(vgg, device, torch.float32), x, cf, tg, sg,
+                                 w, depth_fn, td)
+        (grad,) = torch.autograd.grad(loss.sum(), x)
+    return loss.detach(), grad
+
+
+def _rel(got, want) -> float:
+    """max |got - want| over max |want|, on the CPU."""
+    want = want.detach().cpu()
+    return float((got.detach().cpu() - want).abs().max() / want.abs().max())
+
+
+def _l2(got, want) -> float:
+    """||got - want|| over ||want||, on the CPU."""
+    want = want.detach().cpu().double()
+    return float((got.detach().cpu().double() - want).norm() / want.norm())
+
+
+def run_depth_path(device, smi: str, size: int = SIZE, steps: int = STEPS):
+    """Phase 11: depth. Depth-Anything-V2-Small at full width on torch-seeded
+    weights (timed, with its input gradient, against the CPU); depth-loss
+    Gatys through the pipeline with it in the loss graph; MIP with n = 2 in
+    both plans; the batched lanes with the depth term; ``--depth`` through
+    the CLI (the fallback depth, as without a checkpoint). Returns
+    ({kernel: launches over the phase}, metrics)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from tbist_tpu_torch import api, cli, kernels
+    from tbist_tpu_torch.compose import pipeline
+    from tbist_tpu_torch.effects import depth as depth_fx
+    from tbist_tpu_torch.ops import mip as mip_ops
+    from tbist_tpu_torch.ops.mip import normalize_depth
+    from tbist_tpu_torch.optimize import gatys, gatys_depth
+    from tbist_tpu_torch.parallel import batched
+    from tbist_tpu_torch.utils.config import DepthConfig, EffectRequest, GatysConfig
+    from tbist_tpu_torch.utils.imageio import load_image, to_device
+    from tbist_tpu_torch.utils.logging import RunMetrics
+    from tbist_tpu_torch.utils.precision import full_f32
+    from tbist_tpu_torch.utils.prof import host_clock
+    from tbist_tpu_torch.weights import vgg as vgg_weights
+
+    cpu = torch.device("cpu")
+    boat = os.path.join(ROOT, "data/content_imgs/boat.jpg")
+    starry = os.path.join(ROOT, "data/style_imgs/starry_night.jpg")
+    content, style = (to_device(load_image(p), bucket=32, max_side=size, device=device)
+                      for p in (boat, starry))
+    est, est_cpu, n_params = _seeded_depth(device)
+    vgg = vgg_weights.get_params(device=device)
+    metrics, total = {"depth_anything_params": n_params}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    # 1. the seeded model alone: the forward (1370 tokens), the forward with
+    # the input gradient, its peak, card against CPU, the map's spread
+    def forward():
+        with torch.no_grad():
+            out = est(content)
+        torch.cuda.synchronize()
+        return out
+
+    def forward_grad(img=content, fn=est):
+        x = img.clone().requires_grad_(True)
+        with full_f32():
+            (g,) = torch.autograd.grad(fn(x).mean(), x)
+        if x.is_cuda:
+            torch.cuda.synchronize()
+        return g
+
+    kernels.reset_launch_counts()
+    metrics["depth_ms"], metrics["depth_ms_all"], depth = _host_ms(forward, STYLE_ITERS)
+    forward_grad()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    metrics["depth_grad_ms"], _, grad = _host_ms(forward_grad, 3)
+    metrics["depth_grad_peak_bytes"] = torch.cuda.max_memory_allocated() - held
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = est_cpu(content.cpu())
+    metrics["depth_cpu_seconds"] = time.perf_counter() - t0
+    metrics["depth_card_vs_cpu_rel"] = _rel(depth, want)
+    # the input gradient, card against CPU, beside its witness: the same
+    # gradient with every input pixel one ulp up, on each side. A DPT ReLU
+    # whose input crosses 0 between two f32 computations moves it by up to
+    # about 1e-2 of max, so each side's f32 is held against f64 as well, at
+    # the model's own 518² input (the resizes around it are linear)
+    want = forward_grad(content.cpu(), est_cpu)
+    up = torch.nextafter(content, torch.full_like(content, 2.0))
+    core = _depth_core_grads(content.cpu(), device)
+    metrics.update({
+        "depth_grad_card_vs_cpu_rel": _rel(grad, want),
+        "depth_grad_card_vs_cpu_l2": _l2(grad, want),
+        "depth_grad_card_one_ulp_up_rel": _rel(forward_grad(up), grad),
+        "depth_grad_cpu_one_ulp_up_rel": _rel(forward_grad(up.cpu(), est_cpu), want),
+        "core_grad_card_f32_vs_f64_rel": _rel(core["card_f32"], core["card_f64"]),
+        "core_grad_cpu_f32_vs_f64_rel": _rel(core["cpu_f32"], core["card_f64"]),
+        "core_grad_card_f64_vs_cpu_f64_rel": _rel(core["card_f64"], core["cpu_f64"]),
+    })
+    metrics["normalized_depth_std"] = float(normalize_depth(depth).std())
+    _expect_launches(kernels.launch_counts())  # no kernel of the port in Depth Anything
+    log(json.dumps({"depth_model": f"Depth-Anything-V2-Small, torch-seeded ({n_params} "
+                    f"parameters), boat.jpg {size}² -> 518², f32", **metrics,
+                    "grad_finite": bool(torch.isfinite(grad).all()), "card": smi}))
+    if not (metrics["depth_card_vs_cpu_rel"] <= 1e-4
+            and metrics["core_grad_card_f32_vs_f64_rel"] <= 1e-3
+            and metrics["core_grad_card_f64_vs_cpu_f64_rel"] <= 1e-6
+            and metrics["normalized_depth_std"] > 1e-3 and depth.shape == (size, size)
+            and bool(torch.isfinite(grad).all())):
+        raise AssertionError(f"seeded Depth Anything: {metrics}")
+
+    # 2. depth-loss Gatys through the pipeline, the seeded model in the graph
+    dcfg = DepthConfig(mode="depth_loss")
+    req = EffectRequest(depth=dcfg, gatys=GatysConfig(num_steps=steps))
+    reg = pipeline.ModelRegistry(device=device, vgg_params=vgg, depth_estimator=est)
+    pipeline.apply_image(content, dataclasses.replace(req, gatys=GatysConfig(num_steps=3)),
+                         pipeline.EffectInputs(style_image=style), reg)  # warm-up
+    run = RunMetrics()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with host_clock() as host:
+        out = pipeline.apply_image(content, req, pipeline.EffectInputs(style_image=style), reg,
+                                   run)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    one = gatys_depth.stylize_with_depth(content, style, dataclasses.replace(
+        req.gatys, num_steps=1, w_depth=dcfg.w_depth), est, vgg, device=device)
+    hist = np.asarray(run.loss_history)
+    line = {"depth_loss_path": f"pipeline --depth depth_loss, boat.jpg x starry_night.jpg "
+                               f"{size}², {steps} steps, seeded Depth Anything in the graph",
+            "depth_loss_iters_per_sec": run.extra["iters_per_sec"],
+            "seconds": run.timings_s["gatys_depth"], "loss_first": float(hist[0]),
+            "loss_last": float(hist[-1]), "loss_min": float(hist.min()),
+            "loss_max": float(hist.max()), "loss_argmax": int(hist.argmax()),
+            "depth_term_after_step_1": _depth_term(est, one, content, dcfg.w_depth),
+            "depth_term_last": _depth_term(est, out, content, dcfg.w_depth),
+            "max_memory_allocated": peak, "launches": counts,
+            "host_cpu_ms_per_step": host["process_cpu_s"] / steps * 1e3,
+            "host_wall_ms_per_step": host["wall_s"] / steps * 1e3, "card": smi}
+    log(json.dumps(line))
+    add(counts)
+    _expect_launches(counts, **gatys_launches(steps))
+    # L-BFGS without a line search overshoots early on this objective (the
+    # loss peaks at tens of times its start) and need not end below its
+    # start within the steps, so progress is the best loss reached
+    if not (out.shape == content.shape and np.isfinite(hist).all() and hist.min() < hist[0]
+            and line["depth_term_after_step_1"] > 0 and line["depth_term_last"] > 0):
+        raise AssertionError(f"depth-loss path: {line}")
+    metrics.update({k: line[k] for k in ("depth_loss_iters_per_sec", "depth_term_after_step_1",
+                                         "depth_term_last", "host_cpu_ms_per_step")})
+    metrics["depth_loss_max_memory_allocated"] = peak
+    # card against CPU at 128px, with the fallback depth and with the seeded
+    # model, three ways. (a) 3 free-running steps: the loss histories, the
+    # first two held. (b) The witness: the card's run from the content image
+    # with every pixel one ulp up. L-BFGS's first step is tiny (1/||g||_1),
+    # so its curvature pair y = g1 - g0 cancels nearly all of g's digits,
+    # and the third loss moves with rounding; (b) says how far. (c) Each of
+    # the three iterates: the card's loss at the CPU's iterate, held, so
+    # that every step's function is checked without the drift, and its
+    # gradient, reported (at kinks: TV's |x| at 0, pool ties, ReLUs)
+    cfg3 = GatysConfig(num_steps=3, w_depth=dcfg.w_depth)
+    for name, fns in (("fallback depth", (depth_fx._fallback_depth,) * 2),
+                      ("seeded Depth Anything", (est, est_cpu))):
+        small, imgs = {}, {}
+        for dev, fn in zip((device, cpu), fns):
+            imgs[dev.type] = [to_device(load_image(p), bucket=32, max_side=128, device=dev)
+                              for p in (boat, starry)]
+            vgg_dev = vgg_weights.get_params(device=dev)
+            m = RunMetrics()
+            gatys_depth.stylize_with_depth(*imgs[dev.type], cfg3, fn, vgg_dev, m, device=dev)
+            small[dev.type] = np.asarray(m.loss_history)
+        c, s = imgs[device.type]
+        m = RunMetrics()
+        gatys_depth.stylize_with_depth(torch.nextafter(c, torch.full_like(c, 2.0)), s, cfg3,
+                                       fns[0], vgg, m, device=device)
+        ulp = np.abs(np.asarray(m.loss_history) / small[device.type] - 1)
+        rel = np.abs(small[device.type] / small["cpu"] - 1)
+        c_cpu, s_cpu = imgs["cpu"]
+        vgg_cpu = vgg_weights.get_params(device=cpu)
+        forced = []
+        for k in range(3):
+            it = c_cpu if k == 0 else gatys_depth.stylize_with_depth(
+                c_cpu, s_cpu, dataclasses.replace(cfg3, num_steps=k), fns[1], vgg_cpu,
+                device=cpu)
+            lw, gw = _loss_grad(cfg3, vgg_cpu, c_cpu, s_cpu, it, depth_fn=fns[1])
+            lg, gg = _loss_grad(cfg3, vgg, c, s, it.to(device), depth_fn=fns[0])
+            forced.append((abs(float(lg[0]) / float(lw[0]) - 1), _rel(gg, gw)))
+        line = {"depth_loss_card_vs_cpu": f"3 steps at 128px, {name}",
+                "loss_rel_err_by_step": rel.tolist(), "steps_held": 2,
+                "card_one_ulp_up_rel_by_step": ulp.tolist(),
+                "at_cpu_iterates_loss_rel": [f[0] for f in forced],
+                "at_cpu_iterates_grad_rel_of_max": [f[1] for f in forced],
+                "card": small[device.type].tolist(), "cpu": small["cpu"].tolist()}
+        log(json.dumps(line))
+        if not (rel[:2].max() <= 1e-5 and max(f[0] for f in forced) <= 1e-5):
+            raise AssertionError(f"depth-loss card and CPU disagree ({name}): {line}")
+
+    # 3. MIP, n = 2, the seeded depth: the sequential plan (the default) at
+    # the path's steps, the batched plan at a quarter of them (it saves
+    # nothing on one card, and the script keeps to its time), their
+    # agreement after 2 steps, and ms a lane's step for each
+    mip, batched_steps = {}, steps // 4
+    for batched_plan, n_full in ((False, steps), (True, batched_steps)):
+        for n_steps in (2, n_full):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = depth_fx.style_mip(content, style, 2, GatysConfig(num_steps=n_steps), est, vgg,
+                                     batched=batched_plan, device=device).cpu()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = kernels.launch_counts()
+            if n_steps == n_full:
+                add(counts)
+                # each layer's run computes the style Grams once; the batched
+                # plan runs both layers in one launch per Gram and pool
+                _expect_launches(counts, **gatys_launches(n_full, calls=1 if batched_plan else 2))
+            mip[(batched_plan, n_steps)] = (res, ms, counts)
+    metrics["mip_ms"] = mip[(False, steps)][1]
+    metrics["mip_batched_ms"] = mip[(True, batched_steps)][1]
+    line = {"mip": f"style_mip n 2, seeded depth, {size}², sequential {steps} steps a layer, "
+                   f"batched {batched_steps} steps",
+            "mip_ms": metrics["mip_ms"], "mip_batched_ms": metrics["mip_batched_ms"],
+            "ms_a_lane_step_sequential": metrics["mip_ms"] / (2 * steps),
+            "ms_a_lane_step_batched": metrics["mip_batched_ms"] / (2 * batched_steps),
+            "plans_gap_after_2_steps": float((mip[(False, 2)][0] - mip[(True, 2)][0]).abs().max()),
+            "launches_sequential": mip[(False, steps)][2],
+            "launches_batched": mip[(True, batched_steps)][2], "card": smi}
+    # the batched plan's lanes against each lane alone: the loss and its
+    # gradient at MIP's two layers (its first step), with its per-lane
+    # style weights (style_mip's rule: strength 1 keeps w_style, 0.5 maps)
+    gcfg = GatysConfig()
+    with torch.no_grad():
+        layers = mip_ops.generate_layers(content, est(content), 2)
+    w = [gcfg.w_style, gatys.style_weight_from_strength(0.5)]
+    lb, gb = _loss_grad(gcfg, vgg, layers, style, layers, w_style=w)
+    lanes = []
+    for i in range(2):
+        li, gi = _loss_grad(dataclasses.replace(gcfg, w_style=w[i]), vgg, layers[i:i + 1], style,
+                            layers[i:i + 1])
+        lanes.append((abs(float(lb[i]) / float(li[0]) - 1), _rel(gb[i], gi[0])))
+    line["lanes_vs_alone_loss_rel"] = [v[0] for v in lanes]
+    line["lanes_vs_alone_grad_rel_of_max"] = [v[1] for v in lanes]
+    log(json.dumps(line))
+    if not (line["plans_gap_after_2_steps"] <= 1e-4
+            and max(v[0] for v in lanes) <= 2e-5 and max(v[1] for v in lanes) <= 2e-5
+            and all(bool(torch.isfinite(r[0]).all()) for r in mip.values())):
+        raise AssertionError(f"MIP plans: {line}")
+
+    # 4. the batched lanes with the depth term: 2 frames, 10 steps
+    frames = torch.cat([content, torch.flip(content, dims=[2])])
+    bcfg = GatysConfig(num_steps=10, w_depth=dcfg.w_depth)
+    kernels.reset_launch_counts()
+    lanes, lane_hist = batched.run(bcfg, vgg, frames, [style], return_history=True, depth_fn=est,
+                                   device=device)
+    counts = kernels.launch_counts()
+    add(counts)
+    _expect_launches(counts, **gatys_launches(10))
+    terms = [_depth_term(est, lanes[i:i + 1], frames[i:i + 1], bcfg.w_depth) for i in range(2)]
+    line = {"batched_depth_lanes": f"batched.run, 2 frames {size}², 10 steps, seeded depth_fn",
+            "loss_first": lane_hist[0].tolist(), "loss_last": lane_hist[-1].tolist(),
+            "depth_terms_last": terms, "launches": counts}
+    log(json.dumps(line))
+    if not (bool(torch.isfinite(lanes).all()) and bool(torch.isfinite(lane_hist).all())
+            and min(terms) > 0):
+        raise AssertionError(f"batched depth lanes: {line}")
+
+    # 5. the CLI, without a checkpoint: the fallback depth; its PNG against
+    # the pipeline's on the same request. cuDNN's default dgrad algorithms
+    # are not bitwise repeatable, and L-BFGS spreads a one-ulp difference
+    # over 20 steps, so the comparison runs cuDNN deterministic; the
+    # pipeline's repeat under the default is reported beside it
+    cli_runs = {}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    for mode in ("depth_loss", "mip"):
+        out_path = os.path.join(ROOT, "build", f"smoke_depth_{mode}.png")
+        argv = ["--image", boat, "--style", starry, "--depth", mode, "--steps", "20",
+                "--out", out_path, "--device", device.type]
+        req = cli.request_from_args(cli.build_parser().parse_args(argv))
+
+        def pipeline_png():
+            return np.asarray(api.apply_image(boat, req, style_image=starry, device=device))
+
+        run = RunMetrics()
+        kernels.reset_launch_counts()
+        saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            rc = cli.main(argv, metrics=run)
+            want = pipeline_png()
+        finally:
+            torch.backends.cudnn.deterministic = saved
+        png = np.asarray(Image.open(out_path))
+        repeat = [pipeline_png() for _ in range(2)]
+        add(kernels.launch_counts())
+        cli_runs[mode] = {"rc": rc, "image": list(png.shape), "degraded": run.degraded,
+                          "pixels_differing_from_pipeline": int((png != want).any(-1).sum()),
+                          "default_cudnn_repeat_pixels_differing": int(
+                              (repeat[0] != repeat[1]).any(-1).sum())}
+    log(json.dumps({"depth_cli": cli_runs}))
+    if not all(r["rc"] == 0 and "depth_fallback" in r["degraded"]
+               and r["image"] == [SIZE, SIZE, 3] and r["pixels_differing_from_pipeline"] == 0
+               for r in cli_runs.values()):
+        raise AssertionError(f"--depth through the CLI: {cli_runs}")
+    metrics["cli_pixels_differing"] = {k: v["pixels_differing_from_pipeline"]
+                                       for k, v in cli_runs.items()}
+    return total, metrics
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
@@ -1278,10 +1706,11 @@ SOURCES = {
 # the paths each kernel runs on (text-location: K4 in SAM's encoder behind
 # DINO, K1 and K3 where stage 4 runs under the location mask; effects: K1
 # and K3 under channel attention and in the resumed segments; text-style:
-# K4 where the style is composited under a DINO+SAM location mask)
-PATHS = {"gram_fwd": "gatys, text-location, effects",
-         "gram_bwd": "gatys, text-location, effects",
-         "pool_bwd": "none", "relu_pool_bwd": "gatys, text-location, effects",
+# K4 where the style is composited under a DINO+SAM location mask; depth:
+# K1 and K3 in depth-loss Gatys, both MIP plans and the batched lanes)
+PATHS = {"gram_fwd": "gatys, text-location, effects, depth",
+         "gram_bwd": "gatys, text-location, effects, depth",
+         "pool_bwd": "none", "relu_pool_bwd": "gatys, text-location, effects, depth",
          "sam_attn": "sam, text-location, text-style"}
 
 
@@ -1376,12 +1805,26 @@ def main() -> int:
             f"chain {style['chain_ms']:.1f} ms; on {smi}")
     del chain_extractor
 
+    with phase("depth path"):
+        depth_counts, dm = run_depth_path(device, smi)
+        log(f"depth path: depth_ms {dm['depth_ms']:.2f} (forward, 518²), forward + input "
+            f"gradient {dm['depth_grad_ms']:.2f} ms (peak {dm['depth_grad_peak_bytes']} bytes "
+            f"above what was held); depth_loss_iters_per_sec "
+            f"{dm['depth_loss_iters_per_sec']:.2f} (host CPU {dm['host_cpu_ms_per_step']:.1f} ms "
+            f"a step; max_memory_allocated "
+            f"{dm['depth_loss_max_memory_allocated']} bytes; depth term "
+            f"{dm['depth_term_after_step_1']:.4g} after step 1, {dm['depth_term_last']:.4g} "
+            f"last); mip_ms {dm['mip_ms']:.1f}, mip_batched_ms {dm['mip_batched_ms']:.1f} "
+            f"({STEPS // 4} steps); "
+            f"launches {depth_counts}; on {smi}")
+
     launches_by_path = {
         "gatys": {k: v for k, v in counts.items() if k != "sam_attn"},
         "sam": {"sam_attn": counts["sam_attn"]},
         "text-location": text_counts,
         "effects": effect_counts,
         "text-style": style_counts,
+        "depth": depth_counts,
     }
     work = {
         "gatys": "one step of the Gatys path at 512px, f32: the sum over its shapes",

@@ -94,5 +94,5 @@ def _texture_only(prompt: str, registry: ModelRegistry,
 def apply_video(*args, **kwargs):
     """Not ported yet: the video pipeline is ROADMAP Queue 1 slice 7."""
     raise NotImplementedError(
-        "apply_video is not ported yet (ROADMAP Queue 1, slice 7: items 28-30)"
+        "apply_video is not ported yet (ROADMAP Queue 1, slice 7: items 29-30)"
     )

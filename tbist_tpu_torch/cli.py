@@ -5,9 +5,9 @@ Example:
       --style data/style_imgs/starry_night.jpg --style-transfer \
       --steps 200 --out out.png
 
-It takes the JAX CLI's flags. ``--video`` and ``--depth`` name effects the
-port does not run yet: they stop the CLI with a message naming the ROADMAP
-item and exit code 2.
+It takes the JAX CLI's flags. ``--video`` names the one effect the port
+does not run yet: it stops the CLI with a message naming the ROADMAP item
+and exit code 2.
 ``--aot-cache`` is accepted and does nothing (the eager port compiles
 nothing to cache; ROADMAP item 32). ``--resume-dir`` runs the optimisation
 in checkpointed segments where the JAX CLI does: with ``--style-transfer``,
@@ -33,8 +33,7 @@ from tbist_tpu_torch.utils.logging import RunMetrics, logger
 
 # (argparse dest, flag, the ROADMAP Queue 1 item that ports it)
 _UNPORTED_FLAGS = (
-    ("video", "--video", "slice 7, items 28-30"),
-    ("depth", "--depth", "items 25-27"),
+    ("video", "--video", "slice 7, items 29-30"),
 )
 
 

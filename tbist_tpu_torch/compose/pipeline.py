@@ -3,13 +3,12 @@
 The JAX package chains seven stages in the reference order (app.py:157-735):
 grayscale → text → pixel art → style transfer → style mixing → color
 palette → depth, where each heavyweight effect repeats a 3-way text-mask
-dispatch (``_masked_apply``). The port runs stages 1 to 6: grayscale; the
-text stage in all its modes (the feed-forward text style, a GroundingDINO+SAM
+dispatch (``_masked_apply``). The port runs all seven: grayscale; the text
+stage in all its modes (the feed-forward text style, a GroundingDINO+SAM
 location mask or its fallback, an emoji texture stencil, and their
-composites); pixel art; style transfer and mixing; color palette; stages
-3-6 under the text masks when there are some. A request that needs stage 7
-(depth) raises ``NotImplementedError`` naming the ROADMAP items that port
-it.
+composites); pixel art; style transfer and mixing; color palette; depth
+(MIP or the depth loss); stages 3-7 under the text masks when there are
+some.
 """
 
 from __future__ import annotations
@@ -46,6 +45,8 @@ class ModelRegistry:
     batch_mask_extractor: Optional[Callable] = None
     # (prompt) -> (He, We) bool stencil, anywhere (the pipeline moves it)
     emoji_extractor: Optional[Callable] = None
+    # (image NHWC on the device) -> (H, W) float depth
+    depth_estimator: Optional[Callable] = None
     # fields the lazy loaders resolved (vs caller-injected) — degraded
     # flags only apply to these, so a caller supplying real weights is
     # never reported as degraded by an earlier fallback in this process
@@ -54,9 +55,6 @@ class ModelRegistry:
     def ensure(self, *names: str) -> "ModelRegistry":
         """Lazily resolve only the models a request actually needs."""
         for name in names:
-            if name == "depth_estimator":
-                raise NotImplementedError(
-                    "model 'depth_estimator' is not ported yet (ROADMAP Queue 1, items 25-27)")
             if getattr(self, name) is not None:
                 continue
             self.resolved_by_loader.add(name)
@@ -68,6 +66,10 @@ class ModelRegistry:
                 from tbist_tpu_torch.effects import text_transfer as tt
 
                 self.text_transfer = tt.perform_transfer
+            elif name == "depth_estimator":
+                from tbist_tpu_torch.effects import depth as depth_fx
+
+                self.depth_estimator = depth_fx.default_depth_estimator(self.device)
             else:
                 from tbist_tpu_torch.effects import masking
 
@@ -80,7 +82,7 @@ class ModelRegistry:
 class EffectInputs:
     """Device images the effects consume (style references)."""
 
-    style_image: Optional[torch.Tensor] = None  # style transfer
+    style_image: Optional[torch.Tensor] = None  # style transfer and depth
     style_image1: Optional[torch.Tensor] = None  # mixing
     style_image2: Optional[torch.Tensor] = None
     color_palette_image: Optional[torch.Tensor] = None  # Reinhard target
@@ -145,24 +147,11 @@ def _visualize(mask: torch.Tensor) -> torch.Tensor:
     return m[None, ..., None].expand(1, *m.shape, 3)
 
 
-# stage -> the ROADMAP Queue 1 item that ports it
-_UNPORTED_STAGES = (
-    ("depth", lambda r: r.depth is not None, "items 25-27 (depth)"),
-)
-
-
-def check_ported(req: EffectRequest) -> None:
-    """Raise ``NotImplementedError`` for a stage the port does not run yet."""
-    for stage, used, item in _UNPORTED_STAGES:
-        if used(req):
-            raise NotImplementedError(
-                f"the {stage} stage is not ported yet (ROADMAP Queue 1, {item})"
-            )
-
-
 def needed_components(req: EffectRequest) -> list:
     """ModelRegistry fields a request will exercise."""
-    needed = ["vgg_params"] if req.style_transfer or req.style_mixing else []
+    needed = []
+    if req.style_transfer or req.style_mixing or req.depth is not None:
+        needed.append("vgg_params")
     if req.text is not None:
         if req.text.style_prompt:
             needed.append("text_transfer")
@@ -170,6 +159,8 @@ def needed_components(req: EffectRequest) -> list:
             needed.append("mask_extractor")
         if req.text.texture_prompt:
             needed.append("emoji_extractor")
+    if req.depth is not None:
+        needed.append("depth_estimator")
     return needed
 
 
@@ -182,7 +173,6 @@ def apply_image(
 ) -> Optional[torch.Tensor]:
     """Run the effect chain on an NHWC [0,1] image. None on invalid input,
     matching the reference's contract (SURVEY §5 failure handling)."""
-    check_ported(req)
     inputs = inputs or EffectInputs()
     registry = registry or ModelRegistry(device=image.device)
     needed = needed_components(req)
@@ -209,7 +199,7 @@ def _apply_stages(
     registry: ModelRegistry,
     metrics: RunMetrics,
 ) -> Optional[torch.Tensor]:
-    """Stages 1 to 6 of the reference order (app.py:157-658)."""
+    """The seven stages of the reference order (app.py:157-735)."""
     original = image
     output = image
     state = _TextState(mode=_text_mode(req.text))
@@ -288,6 +278,18 @@ def _apply_stages(
             return None
         output = _masked_apply(
             lambda img: basic.color_palette_transfer(img, inputs.color_palette_image),
+            original, output, state, req)
+
+    # ---- 7. depth-based style transfer (app.py:660-735) ----
+    if req.depth is not None:
+        if inputs.style_image is None:
+            return None
+        from tbist_tpu_torch.effects import depth as depth_fx
+
+        output = _masked_apply(
+            lambda img: depth_fx.depth_style_transfer(
+                img, inputs.style_image, req.depth, req.gatys, registry.depth_estimator,
+                registry.vgg_params, metrics=metrics, device=image.device),
             original, output, state, req)
 
     return output

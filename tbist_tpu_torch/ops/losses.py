@@ -18,7 +18,7 @@ from tbist_tpu_torch.ops.mixing import mix_features
 Features = Mapping[str, torch.Tensor]
 
 __all__ = [
-    "content_loss", "depth_loss", "edge_loss", "gradient_images", "gram_matrix",
+    "abs_jax", "content_loss", "depth_loss", "edge_loss", "gradient_images", "gram_matrix",
     "normalize", "style_loss", "style_loss_from_targets", "style_targets",
     "to_grayscale", "total_variation_loss",
 ]
@@ -96,11 +96,19 @@ def style_loss(
     return style_loss_from_targets(input_features, targets, style_layers)
 
 
+def abs_jax(x: torch.Tensor) -> torch.Tensor:
+    """|x| with JAX's gradient: +1 at x == 0 (``jnp.abs`` differentiates as
+    ``select(x >= 0, g, -g)``), where ``torch.abs`` gives 0. An image with
+    flat regions (a MIP layer's masked pixels, pixels clamped to 0 or 1)
+    has exact zeros among its TV differences."""
+    return torch.where(x >= 0, x, -x)
+
+
 def total_variation_loss(y: torch.Tensor) -> torch.Tensor:
     """Anisotropic TV normalized by C*H*W."""
     _, h, w, c = y.shape
-    dh = torch.sum(torch.abs(y[:, 1:, :, :] - y[:, :-1, :, :]))
-    dw = torch.sum(torch.abs(y[:, :, 1:, :] - y[:, :, :-1, :]))
+    dh = torch.sum(abs_jax(y[:, 1:, :, :] - y[:, :-1, :, :]))
+    dw = torch.sum(abs_jax(y[:, :, 1:, :] - y[:, :, :-1, :]))
     return (dh + dw) / (c * h * w)
 
 

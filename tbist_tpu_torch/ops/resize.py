@@ -5,11 +5,13 @@ Gather-based, on (..., H, W, C) tensors: cv2 ``INTER_NEAREST`` and the
 half-pixel (cv2 ``INTER_LINEAR``, torch default) or ``align_corners=True``
 bilinear conventions. The source indices and weights are computed in
 float64, as the JAX package computes them with x64 on: the nearest indices
-on the tensor's device, the bilinear ones on the host.
+on the tensor's device, the bilinear ones on the host (once per size and
+device).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -42,6 +44,14 @@ def _linear_weights(n_out: int, n_in: int, align_corners: bool):
     return lo, hi, (src - lo).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=64)
+def _linear_weights_on(n_out: int, n_in: int, align_corners: bool, device: torch.device):
+    """``_linear_weights`` as tensors on ``device``, kept: a copy from the
+    host would make the host wait for the card on every call."""
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in _linear_weights(n_out, n_in, align_corners))
+
+
 def resize_bilinear(
     x: torch.Tensor, out_hw: Tuple[int, int], align_corners: bool = False
 ) -> torch.Tensor:
@@ -52,10 +62,10 @@ def resize_bilinear(
     xf = x.float()
 
     def lerp(t, axis, n_out):
-        lo, hi, frac = _linear_weights(n_out, t.shape[axis], align_corners)
-        a = torch.index_select(t, axis, torch.as_tensor(lo, device=t.device))
-        b = torch.index_select(t, axis, torch.as_tensor(hi, device=t.device))
-        f = torch.as_tensor(frac, device=t.device).reshape((n_out,) + (1,) * (-axis - 1))
+        lo, hi, frac = _linear_weights_on(n_out, t.shape[axis], align_corners, t.device)
+        a = torch.index_select(t, axis, lo)
+        b = torch.index_select(t, axis, hi)
+        f = frac.reshape((n_out,) + (1,) * (-axis - 1))
         return a * (1.0 - f) + b * f
 
     return lerp(lerp(xf, -3, h_out), -2, w_out).to(x.dtype)

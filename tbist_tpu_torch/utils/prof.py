@@ -15,13 +15,15 @@ picasso2.png and Canny edges; Reinhard colour transfer of sea.png to
 black_white_gradient.jpg), or the feed-forward text style through the
 pipeline (boat.jpg at 512², prompt "mosaic", the seeded Ghiasi weights and
 the prompt-seeded embedding, bf16 activations unless
-``TBIST_GHIASI_BF16=0``)::
+``TBIST_GHIASI_BF16=0``), or depth-loss Gatys steps at 512px with the
+torch-seeded Depth-Anything-V2-Small in the loss graph::
 
     python -m tbist_tpu_torch.utils.prof --size 512 --steps 30
     python -m tbist_tpu_torch.utils.prof --path sam --steps 10
     python -m tbist_tpu_torch.utils.prof --path text-location --steps 5
     python -m tbist_tpu_torch.utils.prof --path effects --steps 10
     python -m tbist_tpu_torch.utils.prof --path text-style --steps 20
+    python -m tbist_tpu_torch.utils.prof --path depth --steps 10
 
 It prints one JSON line: device time by kind and of the top kernels per
 step (per call for SAM and text-location), CUDA calls per step that can
@@ -34,16 +36,24 @@ and its decode), BERT's once per prompt, and the host's thresholding; for
 pixel art, the k-means palette's, the quantizer's and Canny's time per call;
 for the text style, the MLP's, each Ghiasi layer's, the instance norms' and
 the read-back's, and the convolution kernels each Ghiasi layer launches with
-its operands' dtype.
+its operands' dtype; for depth, the forward spans of Depth Anything and of
+VGG-19 within the steps, each one's forward and input gradient alone, the
+host's own readings over repeated runs (wall and CPU ms a step,
+cudaMallocs, the card's SM clock and power; profiled, the busy share, the
+host's waits and the device's copies a step), and the batched lanes of
+MIP's batched plan (one lane and two: ms a step, and device time by kind
+for two).
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
+import threading
 import time
 from typing import Dict, Optional
 
@@ -59,10 +69,10 @@ _KINDS = (
     ("deformable sampling (grid_sample)", ("grid_sampler",)),
     ("sort (query selection)", ("RadixSort", "radixSort", "sortKeyValue", "SortKV")),
     ("max pool (Canny hysteresis)", ("max_pool",)),
-    # cuDNN's FFT convolutions run complex (float2) GEMVs; its layout
+    # cuDNN's FFT convolutions run complex (float2, cf32) GEMVs and GEMMs; its layout
     # transposes (nchwToNhwc, nhwcToNchw) belong to the convolutions too
     ("convolution (cuDNN)", ("conv", "cudnn", "implicit", "fprop", "dgrad", "winograd",
-                             "fft", "float2", "nchwToNhwc", "nhwcToNchw")),
+                             "fft", "float2", "cf32", "nchwToNhwc", "nhwcToNchw")),
     ("matmul (cuBLAS)", ("gemm", "gemv", "dot_kernel", "cutlass")),
     ("linear solve", ("getrf", "getrs", "trsm", "lu_", "laswp", "magma", "solve")),
     ("softmax", ("softmax", "SoftMax")),
@@ -121,10 +131,14 @@ def device_breakdown(p) -> Dict:
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
     window = spans[-1][1] - spans[0][0]
-    blocking = {}
+    blocking, blocking_ms, copies = {}, {}, {}
     for e in p.events():
         if e.device_type == torch.autograd.DeviceType.CPU and e.name in _BLOCKING:
             blocking[e.name] = blocking.get(e.name, 0) + 1
+            blocking_ms[e.name] = blocking_ms.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    for e in kernels:
+        if e.name.startswith(("Memcpy", "Memset")):
+            copies[e.name] = copies.get(e.name, 0) + 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     return {
         "device_events": len(kernels),
@@ -133,7 +147,22 @@ def device_breakdown(p) -> Dict:
         "window_ms": window / 1e3,
         "busy_share": busy / window if window else None,
         "blocking_calls": blocking,
+        "blocking_host_ms": blocking_ms,
+        "device_copies": copies,
     }
+
+
+@contextlib.contextmanager
+def host_clock():
+    """Wall seconds and this process's CPU seconds (all its threads) over
+    the block, in a dict filled at its end. A host-paced loop whose wall
+    time grows with its own CPU time spends more CPU on the same work (a
+    slower or shared host); one whose wall time grows alone is waiting."""
+    out: Dict = {}
+    c0, t0 = time.process_time(), time.perf_counter()
+    yield out
+    out["wall_s"] = time.perf_counter() - t0
+    out["process_cpu_s"] = time.process_time() - c0
 
 
 def _profile(run, steps: int, trace_path: Optional[str]) -> Dict:
@@ -146,7 +175,8 @@ def _profile(run, steps: int, trace_path: Optional[str]) -> Dict:
     out = device_breakdown(p)
     per_step = {
         key: {k: v / steps for k, v in out.pop(key, {}).items()}
-        for key in ("kernel_ms_by_kind", "top_kernels_ms", "blocking_calls")
+        for key in ("kernel_ms_by_kind", "top_kernels_ms", "blocking_calls", "blocking_host_ms",
+                    "device_copies")
     }
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -354,6 +384,166 @@ def _text_style(steps: int, trace_path: Optional[str]) -> Dict:
             **_profile(run, steps, trace_path)}
 
 
+def _depth(steps: int, trace_path: Optional[str]) -> Dict:
+    """Depth-loss Gatys steps at 512px with the torch-seeded
+    Depth-Anything-V2-Small in the loss graph (what ``--depth depth_loss``
+    runs once a checkpoint exists)."""
+    from tbist_tpu_torch.models import depth_anything as da
+    from tbist_tpu_torch.models import vgg19
+    from tbist_tpu_torch.ops import losses
+    from tbist_tpu_torch.ops.mip import normalize_depth
+    from tbist_tpu_torch.optimize import gatys
+    from tbist_tpu_torch.utils.config import VGG_MEAN, VGG_STD, GatysConfig
+    from tbist_tpu_torch.utils.imageio import load_image, to_device
+    from tbist_tpu_torch.utils.precision import full_f32
+    from tbist_tpu_torch.weights import vgg as vgg_weights
+
+    content, style = (to_device(load_image(os.path.join(_ROOT, p)), bucket=32, max_side=512)
+                      for p in ("data/content_imgs/boat.jpg", "data/style_imgs/starry_night.jpg"))
+    dparams = da.init_params(torch.Generator().manual_seed(0), device="cuda")
+    vgg = vgg_weights.get_params()
+
+    def estimator(img):  # through the module, so that a span can wrap it
+        return da.predict_depth(dparams, da.SMALL, img)
+
+    cfg = GatysConfig(num_steps=steps, w_depth=5e4)
+    gatys.stylize(content, [style], GatysConfig(num_steps=3, w_depth=5e4), vgg,
+                  depth_fn=estimator)  # warm-up
+
+    def run(n=steps):
+        gatys.stylize(content, [style], dataclasses.replace(cfg, num_steps=n), vgg,
+                      depth_fn=estimator)[1].cpu()
+
+    host_runs = _host_runs(run, steps)  # first, while the process is new
+    with _layer_spans([(da, "predict_depth", "depth anything forward"),
+                       (vgg19, "extract_features", "vgg-19 forward")]) as spans:
+        gatys.stylize(content, [style], cfg, vgg, depth_fn=estimator)[1].cpu()
+    torch.cuda.synchronize()
+    layer_ms = {label: sum(s.elapsed_time(e) for s, e in pairs) / steps
+                for label, pairs in spans.items()}
+
+    # each part's forward and input gradient alone, as a step runs them
+    params = gatys.params_on(vgg, content.device, torch.float32)
+    target = normalize_depth(estimator(content)).detach()
+
+    def depth_part(x):
+        return cfg.w_depth * losses.depth_loss(normalize_depth(estimator(x)), target)
+
+    layers = cfg.content_layers + cfg.style_layers
+    with torch.no_grad():
+        grams = {k: losses.gram_matrix(v) for k, v in vgg19.extract_features(
+            params, losses.normalize(style, VGG_MEAN, VGG_STD), cfg.style_layers).items()}
+
+    def vgg_part(x):  # the style term (K1, K3) and VGG to conv5_1
+        feats = vgg19.extract_features(params, losses.normalize(x, VGG_MEAN, VGG_STD), layers)
+        return cfg.w_style * losses.style_loss_from_targets(feats, grams, cfg.style_layers)
+
+    for label, part in (("depth anything forward + input gradient", depth_part),
+                        ("vgg-19 forward + input gradient", vgg_part)):
+        pairs = []
+        with full_f32():
+            for _ in range(steps + 2):
+                x = content.clone().requires_grad_(True)
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                torch.autograd.grad(part(x), x)
+                end.record()
+                pairs.append((start, end))
+        torch.cuda.synchronize()
+        layer_ms[label] = sum(s.elapsed_time(e) for s, e in pairs[2:]) / steps
+
+    return {"profile": "depth-loss gatys step, boat.jpg x starry_night.jpg 512², torch-seeded "
+                       "Depth-Anything-V2-Small in the loss graph, f32",
+            "layer_ms_per_step": layer_ms, "host_runs": host_runs,
+            "batched_lanes": _lanes(content, style, vgg, steps),
+            **_profile(run, steps, trace_path)}
+
+
+def _host_runs(run, steps: int, long_steps: int = 100, repeats: int = 4) -> Dict:
+    """``run(long_steps)`` ``repeats`` times unprofiled, then ``run(steps)``
+    twice profiled, each with ``host_clock``'s readings a step, the
+    cudaMallocs it made and the card's SM clock and power (``nvidia-smi``
+    once a second, from another thread); profiled, also the busy share, the
+    host's blocking calls a step with the host ms spent in them, and the
+    device's copies a step. What tells a loaded host from a loop that waits
+    on the device, and a slow first run from a slow host."""
+    out = {}
+    for profiled, n, times in ((False, long_steps, repeats), (True, steps, 2)):
+        rows = []
+        for _ in range(times):
+            mallocs = torch.cuda.memory_stats().get("segment.all.allocated", 0)
+            with (trace() if profiled else contextlib.nullcontext()) as p, _smi_samples() as smi:
+                with host_clock() as h:
+                    run(n)
+            row = {"steps": n, "wall_ms_per_step": h["wall_s"] / n * 1e3,
+                   "process_cpu_ms_per_step": h["process_cpu_s"] / n * 1e3,
+                   "cuda_mallocs": torch.cuda.memory_stats().get("segment.all.allocated", 0)
+                   - mallocs,
+                   "sm_clock_mhz": [m for m, _ in smi], "power_w": [w for _, w in smi]}
+            if profiled:
+                b = device_breakdown(p)
+                row["busy_share"] = b.get("busy_share")
+                for key in ("blocking_calls", "blocking_host_ms", "device_copies"):
+                    row[key + "_per_step"] = {k: v / n for k, v in b.get(key, {}).items()}
+            rows.append(row)
+        out["profiled" if profiled else "unprofiled"] = rows
+    return out
+
+
+@contextlib.contextmanager
+def _smi_samples(period_s: float = 1.0):
+    """Yields a list that a thread fills with the card's (SM clock MHz,
+    power W) from ``nvidia-smi`` every ``period_s`` until the block ends."""
+    samples, stop = [], threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            out = subprocess.run(
+                ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,power.draw",
+                 "--format=csv,noheader,nounits"], capture_output=True, text=True, timeout=30,
+            ).stdout
+            try:
+                samples.append(tuple(float(v) for v in out.split(",")[:2]))
+            except ValueError:
+                pass
+            stop.wait(period_s)
+
+    thread = threading.Thread(target=poll, daemon=True)
+    thread.start()
+    try:
+        yield samples
+    finally:
+        stop.set()
+        thread.join()
+
+
+def _lanes(content, style, vgg, steps: int) -> Dict:
+    """MIP's batched plan: ``parallel.batched.run`` steps of one lane and of
+    two (the image and its mirror), no depth term: ms a step unprofiled,
+    and device time by kind a step for two."""
+    from tbist_tpu_torch.parallel import batched
+    from tbist_tpu_torch.utils.config import GatysConfig
+
+    frames = torch.cat([content, torch.flip(content, dims=[2])])
+    out = {}
+    for b in (1, 2):
+        def run(n=steps, b=b):
+            batched.run(GatysConfig(num_steps=n), vgg, frames[:b], [style])
+            torch.cuda.synchronize()
+
+        run(3)  # warm-up
+        t0 = time.perf_counter()
+        run()
+        out[f"b{b}_ms_per_step"] = (time.perf_counter() - t0) / steps * 1e3
+    with trace() as p:
+        run()
+    kinds = device_breakdown(p)
+    out["b2_kernel_ms_by_kind"] = {k: v / steps for k, v in kinds["kernel_ms_by_kind"].items()}
+    out["b2_top_kernels_ms"] = {k: v / steps for k, v in kinds["top_kernels_ms"].items()}
+    out["b2_busy_share"] = kinds["busy_share"]
+    return out
+
+
 def _conv_kernels(call) -> Dict:
     """The kernels each Ghiasi convolution launches, by layer, with its
     operands' dtype: one ``call()`` records every ``ghiasi._conv``'s
@@ -392,8 +582,8 @@ def _conv_kernels(call) -> Dict:
 
 def _main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("gatys", "sam", "text-location", "effects", "text-style"),
-                    default="gatys")
+    ap.add_argument("--path", choices=("gatys", "sam", "text-location", "effects", "text-style",
+                                       "depth"), default="gatys")
     ap.add_argument("--size", type=int, default=512, help="Gatys image side")
     ap.add_argument("--steps", type=int, default=30,
                     help="steps (Gatys) or calls (the other paths)")
@@ -412,6 +602,9 @@ def _main() -> None:
         return
     if args.path == "text-style":
         print(json.dumps(_text_style(args.steps, args.trace)))
+        return
+    if args.path == "depth":
+        print(json.dumps(_depth(args.steps, args.trace)))
         return
 
     from tbist_tpu_torch.optimize import gatys

@@ -145,6 +145,15 @@ def test_total_variation_loss():
     _check_value_and_grad(jl.total_variation_loss, tl.total_variation_loss, [x])
 
 
+def test_total_variation_loss_flat_regions():
+    """Exact zeros among the differences (a masked MIP layer, clamped
+    pixels): JAX's |x| has gradient +1 at 0, torch.abs 0."""
+    x = _arr(np.random.default_rng(16), 1, 9, 7, 3)
+    x[:, 2:6, 1:5] = 0.0
+    x[:, 7:, :, 1] = 1.0
+    _check_value_and_grad(jl.total_variation_loss, tl.total_variation_loss, [x])
+
+
 def test_to_grayscale_and_gradient_images():
     x = _arr(np.random.default_rng(14), 2, 9, 7, 3)
     w = _arr(np.random.default_rng(15), 2, 7, 5, 2)

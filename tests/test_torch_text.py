@@ -515,8 +515,10 @@ def test_registry_resolves_text_models_and_refuses_depth():
     assert reg.text_transfer is tt.perform_transfer
     assert reg.emoji_extractor is masking._fallback_emoji_stencil  # no T5 files here
     assert {"text_transfer", "emoji_extractor"} <= reg.resolved_by_loader
-    with pytest.raises(NotImplementedError, match="items 25-27"):
-        reg.ensure("depth_estimator")
+    # depth resolves too now: without a checkpoint, to the fallback
+    from tbist_tpu_torch.effects import depth
+
+    assert reg.ensure("depth_estimator").depth_estimator is depth._fallback_depth
 
 
 def test_emoji_stencil_matches_jax():
