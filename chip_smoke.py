@@ -10,8 +10,10 @@ Phases, each fatal:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every kernel of ``tbist_tpu_torch/csrc`` with ``nvcc``, in parallel;
 3. kernels: each kernel's wrapper at its path's shapes (K1-K3 at 512px, f32
-   and bf16, and f32 at two lanes as the depth path's batched runs; K4 at the 1024² SAM encoder for one and four images, at a
-   ragged 24x40 grid and at SAM's 16x16 grid for a 256 input), held against
+   and bf16, f32 at two lanes as the depth path's batched runs, and f32 at
+   the video path's 8 lanes of 480x864; K4 at the 1024² SAM encoder for
+   one, four and eight images, at a ragged 24x40 grid and at SAM's 16x16
+   grid for a 256 input), held against
    its plain PyTorch version on the same inputs and timed with CUDA events
    beside its bound and a library yardstick; two calls of K1's forward, and
    of K4, must agree bit for bit;
@@ -62,7 +64,17 @@ Phases, each fatal:
    lanes' losses and gradients against each lane alone; the batched lanes
    with the depth term; ``cli.main --depth depth_loss`` and ``--depth
    mip`` (the fallback depth without a checkpoint), each PNG against the
-   pipeline's.
+   pipeline's;
+12. video path: car.mp4 (852x480, 30 fps, 105 frames, decoded with cv2)
+   through the streaming lanes at full width: ``cli.main --video
+   --style-transfer`` on one chunk of 8 frames for 400 steps (and 2 steps
+   against each frame's own pipeline call), the mixing lane, the
+   depth-loss lane with the seeded Depth Anything, ``--text-style`` on all
+   frames with 2 dissolve frames at half speed (the first chunk against
+   the CPU; host syncs and the device's busy share on a shorter run), the
+   masked-text lane with the seeded DINO+SAM batch extractor (K4 4 times)
+   against each frame's own pipeline call, a pixel-art chain on all frames
+   against the CPU, MIP frame by frame, and the dissolve, card against CPU.
 
 Every launch counter is zeroed just before each path and read just after.
 It prints one JSON line per kernel, shape and dtype, then the card's
@@ -95,8 +107,10 @@ L2_BYTES = 50e6  # the H100's L2 cache
 ITERS = 50
 # K4 shapes (N = B·heads, h, w, d): (a) one 1024² image (12 heads, T = 4096),
 # (b) the batch lane's four, (c) a ragged grid (T = 960 is not a multiple of
-# 64), (d) SAM at 256 (T = 256); (c) and (d) split their keys
-SAM_ATTN_SHAPES = ((12, 64, 64, 64), (48, 64, 64, 64), (3, 24, 40, 64), (12, 16, 16, 64))
+# 64), (d) SAM at 256 (T = 256), (e) the masked video lane's chunk of 8
+# frames; (c) and (d) split their keys
+SAM_ATTN_SHAPES = ((12, 64, 64, 64), (48, 64, 64, 64), (3, 24, 40, 64), (12, 16, 16, 64),
+                   (96, 64, 64, 64))
 SAM_ITERS = 10
 # the JAX package's SAM benchmark input (benchmarks/suite.py:56-64)
 SAM_IMAGE_HW = (480, 640)
@@ -130,6 +144,14 @@ STYLE_ITERS = 10
 T5_MAX_LEN = 16
 PIXEL_TOL = 1e-3  # share of pixels two computations of pixel art may disagree on
 SPIN_HZ = 2e9  # cycles per second of torch.cuda._sleep: at most the H100's 1.98 GHz SM clock
+# the video path: car.mp4 (852x480, 30 fps, 105 frames), in chunks of
+# VIDEO_LANES frames (VideoConfig.frame_batch's default), which the Gatys
+# lanes optimize at their bucket shape, bucket_shape(480, 852, 32, 1024)
+VIDEO = os.path.join(ROOT, "data/content_vids/car.mp4")
+VIDEO_HW, VIDEO_BUCKET, VIDEO_FPS, VIDEO_FRAMES = (480, 852), (480, 864), 30.0, 105
+VIDEO_LANES = 8
+VIDEO_SHORT_STEPS = 20  # the mixing, depth-loss and MIP runs
+VIDEO_PROFILED_FRAMES = 32  # the text lane's runs under sync debug mode and the profiler
 
 
 def log(msg: str) -> None:
@@ -188,20 +210,26 @@ def bound_ms(nbytes: float, flops: float, dtype_name: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def gram_shapes(size: int, b: int = 1):
-    return [(b, (size >> k) ** 2, c) for k, c in enumerate(GRAM_CHANNELS)]
+def gram_shapes(size, b: int = 1):
+    """K1's (B, H·W, C) at the style layers of a ``size`` (a side, or (H, W)) input."""
+    h, w = (size, size) if isinstance(size, int) else size
+    return [(b, (h >> k) * (w >> k), c) for k, c in enumerate(GRAM_CHANNELS)]
 
 
-def pool_shapes(size: int, b: int = 1):
-    return [(b, size >> k, size >> k, c) for k, c in enumerate(POOL_CHANNELS)]
+def pool_shapes(size, b: int = 1):
+    """K3's (B, H, W, C) at the four pools of a ``size`` (a side, or (H, W)) input."""
+    h, w = (size, size) if isinstance(size, int) else size
+    return [(b, h >> k, w >> k, c) for k, c in enumerate(POOL_CHANNELS)]
 
 
 def check_kernels(device, size: int):
     """Phase 3: every kernel against its plain version at the main path's
-    shapes: one image in f32 and bf16, and two lanes in f32 (MIP's batched
-    plan and the batched lanes run VGG-19 at N = 2, K1 on (2, H·W, C); the
-    kernels choose their grid and split from the batch). Returns per-step
-    f32 sums per kernel over the one-image shapes."""
+    shapes: one image in f32 and bf16, two lanes in f32 (MIP's batched plan
+    and the batched lanes run VGG-19 at N = 2, K1 on (2, H·W, C); the
+    kernels choose their grid and split from the batch), and the video
+    path's Gatys lanes in f32 (VIDEO_LANES frames of car.mp4 at their
+    VIDEO_BUCKET shape). Returns per-step f32 sums per kernel over the
+    one-image shapes, and logs each lane count's sums."""
     from tbist_tpu_torch.utils.precision import full_f32
 
     with full_f32():  # the plain versions in full f32
@@ -214,7 +242,7 @@ def _check_kernels(device, size: int):
     from tbist_tpu_torch.kernels import gram, pool, relu_pool
 
     gen = torch.Generator(device=device).manual_seed(0)
-    summary = {}
+    summaries = {}  # lanes -> per-step f32 sums per kernel
 
     def record(name, shape, dtype, got, want, rtol, atol, ms, plain_ms, lib_ms, nbytes, flops,
                extra=None):
@@ -231,10 +259,10 @@ def _check_kernels(device, size: int):
         log(json.dumps(line))
         if not ok:
             raise AssertionError(f"{name} {shape} {dtype}: kernel disagrees with plain version")
-        if dtype == torch.float32 and shape[0] == 1:
-            s = summary.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                                          "library_ms": 0.0, "bound_ms": 0.0,
-                                          "bytes_ms": 0.0, "ops_ms": 0.0})
+        if dtype == torch.float32:
+            s = summaries.setdefault(shape[0], {}).setdefault(
+                name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                       "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0})
             s["max_abs_err"] = max(s["max_abs_err"], line["max_abs_err"])
             for k in ("ms", "plain_ms", "bound_ms"):
                 s[k] += line[k]
@@ -242,9 +270,10 @@ def _check_kernels(device, size: int):
             s["bytes_ms"] += nbytes / PEAK_BYTES * 1e3
             s["ops_ms"] += flops / PEAK_FLOPS["float32"] * 1e3
 
-    for dtype, lanes in ((torch.float32, 1), (torch.bfloat16, 1), (torch.float32, 2)):
+    for dtype, lanes, hw in ((torch.float32, 1, size), (torch.bfloat16, 1, size),
+                             (torch.float32, 2, size), (torch.float32, VIDEO_LANES, VIDEO_BUCKET)):
         item = torch.tensor([], dtype=dtype).element_size()
-        for b, n, c in gram_shapes(size, lanes):
+        for b, n, c in gram_shapes(hw, lanes):
             x = torch.randn((b, n, c), generator=gen, device=device).to(dtype)
             norm = 1.0 / (n * c)
             got = gram.gram_fwd(x, norm)
@@ -284,7 +313,7 @@ def _check_kernels(device, size: int):
                    time_ms(lambda x, _, m2: torch.matmul(x, m2), args),
                    b * (2 * n * c * item + c * c * 4), b * 2 * n * c * c)
             del x, m, args, got, want, exact
-        for shape in pool_shapes(size, lanes):
+        for shape in pool_shapes(hw, lanes):
             b, h, w, c = shape
             # quarter steps: exact ties in the windows, exact zeros for the relu
             x = (torch.rand(shape, generator=gen, device=device) * 4).round() / 4
@@ -305,11 +334,15 @@ def _check_kernels(device, size: int):
                    time_ms(lambda *a: pool.pool_bwd_plain(*a, relu=True), (pre, out, g)), None,
                    nbytes, flops)
             del x, pre, g, out
-    for s in summary.values():
-        s["bound_by"] = "bytes" if s.pop("bytes_ms") >= s.pop("ops_ms") else "operations"
-        if not math.isfinite(s["ms"]):
-            raise AssertionError(f"kernel time is not finite: {summary}")
-    return summary
+        torch.cuda.empty_cache()
+    for lanes, summary in summaries.items():
+        for s in summary.values():
+            s["bound_by"] = "bytes" if s.pop("bytes_ms") >= s.pop("ops_ms") else "operations"
+            if not math.isfinite(s["ms"]):
+                raise AssertionError(f"kernel time is not finite: {summary}")
+        log(json.dumps({"kernel_step_sums": f"{lanes} lane(s), f32, one Gatys step: the sums "
+                        "over its shapes", "lanes": lanes, **summary}))
+    return summaries[1]
 
 
 def check_sam_attn(device):
@@ -731,8 +764,8 @@ def sync_sites(fn):
 
 def run_text_location_path(device, smi: str, sam_params):
     """Phase 8: the text→mask chain at full width on seeded weights.
-    Returns ({kernel: launches over the phase}, metrics, the chain's mask
-    extractor)."""
+    Returns ({kernel: launches over the phase}, metrics, the chain's models:
+    (DINO params, SAM params, vocab))."""
     import numpy as np
     import torch
     from PIL import Image
@@ -899,7 +932,7 @@ def run_text_location_path(device, smi: str, sam_params):
                     "degraded": run.degraded}))
     if rc != 0 or "mask_fallback" not in run.degraded or shape != (SIZE, SIZE, 3):
         raise AssertionError(f"cli --text-location: rc {rc}, degraded {run.degraded}")
-    return total, metrics, dino_sam.make_mask_extractor(dino, sam_params, vocab)
+    return total, metrics, (dino, sam_params, vocab)
 
 
 def _effect_inputs(image: str, flags, device):
@@ -1687,6 +1720,328 @@ def run_depth_path(device, smi: str, size: int = SIZE, steps: int = STEPS):
     return total, metrics
 
 
+@contextlib.contextmanager
+def _written_frames():
+    """Yields a list that receives a copy of every uint8 chunk the video
+    stream writer encodes, in order."""
+    import numpy as np
+
+    from tbist_tpu_torch.video import video as vid
+
+    chunks = []
+    real = vid._StreamWriter.__call__
+
+    def spy(self, chunk):
+        chunks.append(np.array(chunk))
+        return real(self, chunk)
+
+    vid._StreamWriter.__call__ = spy
+    try:
+        yield chunks
+    finally:
+        vid._StreamWriter.__call__ = real
+
+
+def _levels(a, b):
+    """|a - b| of two uint8 arrays, as integers."""
+    return abs(a.astype("int16") - b.astype("int16"))
+
+
+def run_video_path(device, smi: str, chain):
+    """Phase 12: the video path on car.mp4 at its full 852x480 with full-width
+    models on seeded weights: (a) the Gatys lane through the CLI, 400 steps
+    on one chunk, and 2 steps against each frame's own pipeline call; (b) the
+    mixing lane; (c) the depth-loss lane with the seeded Depth Anything; (d)
+    the text lane through the CLI on all 105 frames with 2 dissolve frames
+    and slow motion, its first chunk against the CPU, its host syncs and the
+    device's busy share; (f) a batchable chain through the CLI on all frames
+    against the CPU; (g) MIP on the general per-frame path; (h) the
+    dissolve, card against CPU; and last (e) the masked-text lane with the
+    seeded DINO+SAM batch extractor (``chain``: DINO params, SAM params,
+    vocab) against each frame's own pipeline call. Every lane's
+    drive runs with the counts zeroed just before it and read just after.
+    Returns ({kernel: launches over the drives}, metrics)."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from tbist_tpu_torch import api, cli, kernels
+    from tbist_tpu_torch.compose import pipeline as pipe
+    from tbist_tpu_torch.models import dino_sam, sam
+    from tbist_tpu_torch.parallel import batched
+    from tbist_tpu_torch.utils import prof
+    from tbist_tpu_torch.utils.config import (DepthConfig, EffectRequest, GatysConfig,
+                                              TextEffectConfig)
+    from tbist_tpu_torch.utils.imageio import load_image, to_device, to_uint8_device, upload
+    from tbist_tpu_torch.utils.logging import RunMetrics
+    from tbist_tpu_torch.video import video as vid
+
+    starry = os.path.join(ROOT, "data/style_imgs/starry_night.jpg")
+    picasso = os.path.join(ROOT, "data/style_imgs/picasso.jpg")
+    out_dir = os.path.join(ROOT, "build", "video")
+    os.makedirs(out_dir, exist_ok=True)
+    frames, fps = vid.read_frames(VIDEO)
+    log(f"video: {os.path.relpath(VIDEO, ROOT)} decoded with cv2 {cv2.__version__}: "
+        f"{len(frames)} frames of {frames[0].shape}, {fps} fps")
+    if len(frames) != VIDEO_FRAMES or frames[0].shape != (*VIDEO_HW, 3) or fps != VIDEO_FPS:
+        raise AssertionError("car.mp4 did not decode as 105 frames of 852x480 at 30 fps")
+    chunk0 = np.stack(frames[:VIDEO_LANES])
+    total = {name: 0 for name in kernels.launch_counts()}
+    metrics = {"card": smi}
+
+    def drive(fn, **launches):
+        """``fn()``, with every count zeroed just before it and read just
+        after; returns (its result, seconds, counts, peak bytes)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        _expect_launches(counts, **launches)
+        for k, v in counts.items():
+            total[k] += v
+        return out, seconds, counts, torch.cuda.max_memory_allocated()
+
+    def cli_video(name, flags, max_frames=None):
+        out = os.path.join(out_dir, f"{name}.mp4")
+        argv = ["--video", VIDEO, *flags, "--out", out, "--device", "cuda"]
+        if max_frames:
+            argv += ["--max-frames", str(max_frames)]
+        run = RunMetrics()
+        rc = cli.main(argv, metrics=run)
+        if rc != 0:
+            raise AssertionError(f"cli --video {' '.join(flags)}: rc {rc}")
+        return out, run
+
+    def decoded(path, n, hw=VIDEO_HW, fps=VIDEO_FPS):
+        out, out_fps = vid.read_frames(path)
+        if len(out) != n or out[0].shape != (*hw, 3) or out_fps != fps:
+            raise AssertionError(f"{path}: {len(out)} frames of {out[0].shape} at {out_fps} "
+                                 f"fps, expected {n} of {hw} at {fps}")
+        return np.stack(out)
+
+    def per_frame(req, inputs, registry, chunk):
+        """Each frame through its own ``pipeline.apply_image`` on the card."""
+        return np.stack([to_uint8_device(pipe.apply_image(
+            upload(f, device)[None].float() / 255.0, req, inputs, registry))[0].cpu().numpy()
+            for f in chunk])
+
+    # (a) the Gatys lane: one chunk of 8 lanes at 480x864, 400 steps; the
+    # lane's own stream time from CUDA events around batched.run
+    lane_events = []
+    real_run = batched.run
+
+    def timed_run(*a, **kw):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = real_run(*a, **kw)
+        end.record()
+        lane_events.append((start, end))
+        return out
+
+    batched.run = timed_run
+    try:
+        (path, run), seconds, counts, peak = drive(
+            lambda: cli_video("gatys", ["--style", starry, "--style-transfer", "--steps",
+                                        str(STEPS)], VIDEO_LANES), **gatys_launches(STEPS))
+    finally:
+        batched.run = real_run
+    out = decoded(path, VIDEO_LANES)
+    lane_ms = sum(s.elapsed_time(e) for s, e in lane_events)
+    metrics.update(video_gatys_s=seconds, video_gatys_frames_per_sec=VIDEO_LANES / seconds,
+                   video_gatys_ms_per_step=lane_ms / STEPS, video_gatys_max_memory_allocated=peak)
+    change = float(_levels(out, chunk0).mean())
+    log(json.dumps({"video_gatys": f"cli --video car.mp4 --style-transfer, {VIDEO_LANES} frames, "
+                    f"{STEPS} steps, one chunk of {VIDEO_LANES} lanes at {VIDEO_BUCKET}",
+                    "seconds": seconds, "frames_per_sec": VIDEO_LANES / seconds,
+                    "lane_ms_per_step": lane_ms / STEPS, "max_memory_allocated": peak,
+                    "mean_levels_changed": change, "launches": counts,
+                    "degraded": run.degraded}))
+    if not change > 1.0:
+        raise AssertionError("the Gatys lane left the frames as they were")
+    reg = pipe.ModelRegistry(device=device)
+    inputs = pipe.EffectInputs(style_image=to_device(load_image(starry), device=device))
+    req = EffectRequest(style_transfer=True, gatys=GatysConfig(num_steps=2))
+    lanes = np.stack(vid._batched_style(list(chunk0), req, inputs, reg, device=device))
+    diff = _levels(lanes, per_frame(req, inputs, reg, chunk0))
+    log(json.dumps({"video_gatys_lanes_vs_frames": "2 steps, 8 lanes against each frame's "
+                    "apply_image", "max_levels": int(diff.max()),
+                    "share_over_1": float((diff > 1).mean())}))
+    if diff.max() > 2:
+        raise AssertionError(f"Gatys lanes differ from single frames by {diff.max()} levels")
+
+    # (b) the mixing lane, two styles
+    (path, run), seconds, counts, _ = drive(
+        lambda: cli_video("mixing", ["--mixing", "--style", starry, "--style2", picasso,
+                                     "--steps", str(VIDEO_SHORT_STEPS)], VIDEO_LANES),
+        **gatys_launches(VIDEO_SHORT_STEPS))
+    decoded(path, VIDEO_LANES)
+    metrics["video_mixing_s"] = seconds
+    log(json.dumps({"video_mixing": f"cli --mixing, {VIDEO_LANES} frames, {VIDEO_SHORT_STEPS} "
+                    "steps", "seconds": seconds, "launches": counts}))
+
+    # (c) the depth-loss lane with the seeded Depth-Anything-V2-Small: each
+    # frame's target once, then each lane's depth term every step
+    estimator, _, _ = _seeded_depth(device)
+    depth_calls = []
+
+    def counted(img):
+        depth_calls.append(img.shape[0])
+        return estimator(img)
+
+    run = RunMetrics()
+    path, seconds, counts, peak = drive(lambda: api.apply_video(
+        VIDEO, EffectRequest(depth=DepthConfig(mode="depth_loss"),
+                             gatys=GatysConfig(num_steps=VIDEO_SHORT_STEPS)),
+        style_image=starry, registry=pipe.ModelRegistry(device=device, depth_estimator=counted),
+        out_path=os.path.join(out_dir, "depth.mp4"), max_frames=VIDEO_LANES, metrics=run,
+        device=device), **gatys_launches(VIDEO_SHORT_STEPS))
+    decoded(path, VIDEO_LANES)
+    metrics.update(video_depth_s=seconds, video_depth_max_memory_allocated=peak)
+    log(json.dumps({"video_depth": f"api.apply_video depth_loss, seeded Depth Anything, "
+                    f"{VIDEO_LANES} frames, {VIDEO_SHORT_STEPS} steps", "seconds": seconds,
+                    "depth_fn_calls": len(depth_calls), "max_memory_allocated": peak,
+                    "launches": counts, "degraded": run.degraded}))
+    if depth_calls != [1] * (VIDEO_LANES * (VIDEO_SHORT_STEPS + 1)):
+        raise AssertionError(f"the depth term did not reach every lane: {len(depth_calls)} calls")
+
+    # (d) the text lane: the first chunk against the CPU (bf16 both), then
+    # all frames through the CLI with 2 dissolve frames at half speed
+    text = EffectRequest(text=TextEffectConfig(style_prompt=STYLE_PROMPT))
+    card = np.stack(vid._batched_text_transfer(list(chunk0), text, device=device))
+    cpu = np.stack(vid._batched_text_transfer(list(chunk0), text, device=torch.device("cpu")))
+    text_diff = int(_levels(card, cpu).max())
+    flags = ["--text-style", STYLE_PROMPT, "--interp-frames", "2", "--slowmo", "0.5"]
+    (path, run), seconds, counts, peak = drive(lambda: cli_video("text", flags))
+    n_out, out_fps = VIDEO_FRAMES + (VIDEO_FRAMES - 1) * 2, math.floor(VIDEO_FPS * 3 * 0.5)
+    decoded(path, n_out, fps=out_fps)
+    req = cli.request_from_args(cli.build_parser().parse_args(["--out", "x", *flags]))
+
+    def short():
+        return api.apply_video(VIDEO, req, out_path=os.path.join(out_dir, "text_short.mp4"),
+                               max_frames=VIDEO_PROFILED_FRAMES, device=device)
+
+    _, short_ms, sites = sync_sites(short)
+    with prof.trace() as p:
+        short()
+    torch.cuda.synchronize()
+    busy = prof.device_breakdown(p)
+    n_chunks = -(-VIDEO_PROFILED_FRAMES // VIDEO_LANES)
+    metrics.update(video_text_frames_per_sec=VIDEO_FRAMES / seconds,
+                   video_text_host_syncs_per_chunk=len(sites) / n_chunks,
+                   video_text_busy_share=busy.get("busy_share"))
+    log(json.dumps({"video_text": f"cli --video car.mp4 {' '.join(flags)}: {VIDEO_FRAMES} "
+                    f"frames in, {n_out} out at {out_fps} fps", "seconds": seconds,
+                    "frames_per_sec": VIDEO_FRAMES / seconds, "max_memory_allocated": peak,
+                    "first_chunk_card_vs_cpu_max_levels": text_diff,
+                    "short_run": f"{VIDEO_PROFILED_FRAMES} frames, {n_chunks} chunks",
+                    "short_run_ms_sync_debug": short_ms,
+                    "host_syncs_per_chunk": len(sites) / n_chunks,
+                    "host_sync_sites": sorted(set(sites)),
+                    "profiled_busy_share": busy.get("busy_share"),
+                    "profiled_window_ms": busy.get("window_ms"),
+                    "profiled_kernel_ms_by_kind": busy.get("kernel_ms_by_kind"),
+                    "degraded": run.degraded}))
+    if text_diff > 1:
+        raise AssertionError(f"text lane: card and CPU differ by {text_diff} levels")
+
+    # (f) a batchable chain through the CLI on all frames, against the CPU
+    flags = ["--grayscale", "--pixel-art", "--pixel-palette", "3", "--pixel-edges"]
+    with _written_frames() as written:
+        (path, _), seconds, counts, _ = drive(lambda: cli_video("pixel_art", flags))
+    got = np.concatenate(written)
+    req = cli.request_from_args(cli.build_parser().parse_args(["--out", "x", *flags]))
+    cpu_reg = pipe.ModelRegistry(device=torch.device("cpu"))
+    want = np.concatenate([to_uint8_device(pipe.apply_image(
+        torch.from_numpy(np.stack(frames[i:i + VIDEO_LANES])).float() / 255.0, req, None,
+        cpu_reg)).numpy() for i in range(0, VIDEO_FRAMES, VIDEO_LANES)])
+    share = float((got != want).any(-1).mean())
+    decoded(path, VIDEO_FRAMES)
+    metrics["video_pixel_art_frames_per_sec"] = VIDEO_FRAMES / seconds
+    log(json.dumps({"video_batchable_chain": f"cli --video car.mp4 {' '.join(flags)}, "
+                    f"{VIDEO_FRAMES} frames", "seconds": seconds,
+                    "frames_per_sec": VIDEO_FRAMES / seconds,
+                    "share_of_pixels_differing_from_cpu": share, "launches": counts}))
+    if share > PIXEL_TOL:
+        raise AssertionError(f"batchable chain: {share} of the pixels differ from the CPU")
+
+    # (g) MIP on the general path, frame by frame: two layers, each a
+    # stylize call, with the fallback depth (no checkpoint)
+    (path, run), seconds, counts, _ = drive(
+        lambda: cli_video("mip", ["--depth", "mip", "--style", starry, "--steps",
+                                  str(VIDEO_SHORT_STEPS)], 2),
+        **gatys_launches(VIDEO_SHORT_STEPS, calls=2 * 2))
+    decoded(path, 2)
+    log(json.dumps({"video_mip": f"cli --depth mip, 2 frames, {VIDEO_SHORT_STEPS} steps",
+                    "seconds": seconds, "launches": counts, "degraded": run.degraded}))
+    if "depth_fallback" not in run.degraded:
+        raise AssertionError(f"--depth mip without a checkpoint: degraded {run.degraded}")
+
+    # (h) the dissolve on the card against the CPU, bit for bit
+    prev, chunk = (torch.from_numpy(np.stack(f)) for f in (frames[:1], frames[1:1 + VIDEO_LANES]))
+    same = {k: bool(torch.equal(vid._dissolve_chunk(prev.to(device), chunk.to(device), k).cpu(),
+                                vid._dissolve_chunk(prev, chunk, k))) for k in (2, 5)}
+    log(json.dumps({"video_dissolve": "card vs cpu, bit for bit", "k": same}))
+    if not all(same.values()):
+        raise AssertionError(f"dissolve: card and CPU differ: {same}")
+    # (e) the masked-text lane: one DINO and one SAM encoder call for the
+    # chunk (K4 once a global layer, N = 8 frames x 12 heads). The batch
+    # extractor's first call, on the chunk, warms DINO and SAM up at these
+    # shapes; its masks are held against the single-frame extractor's on
+    # the same frames (at most MASK_TOL of a frame's pixels apart, as in
+    # the text-location phase: the chunk's matmuls round otherwise, DINO's
+    # top-900 queries come in another order, SAM's mask logits near 0 flip)
+    dino, sam_params, vocab = chain
+    mask_extractor = dino_sam.make_mask_extractor(dino, sam_params, vocab)
+    batch_mask_extractor = dino_sam.make_batch_mask_extractor(dino, sam_params, vocab)
+    frames_dev = torch.from_numpy(chunk0).to(device)
+    batch_masks = batch_mask_extractor(frames_dev, TEXT_PROMPT)
+    mask_diff = torch.stack([batch_masks[i] != mask_extractor(f, TEXT_PROMPT)
+                             for i, f in enumerate(frames_dev)])
+    masked = EffectRequest(text=TextEffectConfig(style_prompt=STYLE_PROMPT,
+                                                 location_prompt=TEXT_PROMPT))
+    with _written_frames() as written:
+        _, seconds, counts, peak = drive(lambda: api.apply_video(
+            VIDEO, masked, registry=pipe.ModelRegistry(
+                device=device, batch_mask_extractor=batch_mask_extractor),
+            out_path=os.path.join(out_dir, "masked.mp4"), max_frames=VIDEO_LANES,
+            device=device), sam_attn=len(sam.BASE.global_layers))
+    lane = np.concatenate(written)
+    metrics.update(video_masked_chunk_ms=seconds * 1e3, video_masked_max_memory_allocated=peak)
+    # each frame through its own pipeline call, (1) given the lane's mask of
+    # that frame: the lane's Ghiasi batch and composite against a frame's;
+    # (2) with the single-frame extractor: the composite feathers the mask
+    # (edge_smoothing), so a pixel where the two extractors' masks differ
+    # moves the output within the feathering radius around it, and only there
+    own = np.concatenate([per_frame(masked, None, pipe.ModelRegistry(
+        device=device, mask_extractor=lambda img, prompt, i=i, **kw: batch_masks[i]),
+        chunk0[i:i + 1]) for i in range(VIDEO_LANES)])
+    singles = per_frame(masked, None, pipe.ModelRegistry(device=device,
+                                                         mask_extractor=mask_extractor), chunk0)
+    k = int(masked.text.edge_smoothing) | 1
+    near = torch.nn.functional.max_pool2d(mask_diff.float()[:, None], k, 1, k // 2)[:, 0]
+    over = torch.from_numpy((_levels(lane, singles) > 1).any(-1)).to(device)
+    share_mask = mask_diff.float().mean((1, 2)).tolist()
+    share_own = [float((_levels(a, b) > 1).any(-1).mean()) for a, b in zip(lane, own)]
+    share_single = over.float().mean((1, 2)).tolist()
+    unexplained = int((over & (near == 0)).sum())
+    log(json.dumps({"video_masked_text": f"api.apply_video --text-style {STYLE_PROMPT} "
+                    f"--text-location {TEXT_PROMPT}, seeded DINO+SAM, {VIDEO_LANES} frames",
+                    "chunk_ms": seconds * 1e3, "max_memory_allocated": peak, "launches": counts,
+                    "mask_share_batch_vs_single_extractor": share_mask,
+                    "share_over_1_level_vs_frames_given_the_lane_masks": share_own,
+                    "share_over_1_level_vs_frames_with_the_single_extractor": share_single,
+                    "pixels_over_1_level_outside_the_feathered_mask_difference": unexplained}))
+    if (lane.shape != (VIDEO_LANES, *VIDEO_HW, 3) or max(share_mask) > MASK_TOL
+            or max(share_own) > MASK_TOL or unexplained):
+        raise AssertionError(f"masked lane {lane.shape}: masks {share_mask}, given the lane's "
+                             f"masks {share_own}, unexplained pixels {unexplained}")
+    return total, metrics
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
@@ -1707,11 +2062,13 @@ SOURCES = {
 # DINO, K1 and K3 where stage 4 runs under the location mask; effects: K1
 # and K3 under channel attention and in the resumed segments; text-style:
 # K4 where the style is composited under a DINO+SAM location mask; depth:
-# K1 and K3 in depth-loss Gatys, both MIP plans and the batched lanes)
-PATHS = {"gram_fwd": "gatys, text-location, effects, depth",
-         "gram_bwd": "gatys, text-location, effects, depth",
-         "pool_bwd": "none", "relu_pool_bwd": "gatys, text-location, effects, depth",
-         "sam_attn": "sam, text-location, text-style"}
+# K1 and K3 in depth-loss Gatys, both MIP plans and the batched lanes; video:
+# K1 and K3 in the Gatys, mixing and depth-loss lanes and in MIP frame by
+# frame, K4 in the masked-text lane's SAM encoder)
+PATHS = {"gram_fwd": "gatys, text-location, effects, depth, video",
+         "gram_bwd": "gatys, text-location, effects, depth, video",
+         "pool_bwd": "none", "relu_pool_bwd": "gatys, text-location, effects, depth, video",
+         "sam_attn": "sam, text-location, text-style, video"}
 
 
 T0 = time.perf_counter()
@@ -1777,8 +2134,7 @@ def main() -> int:
         check_mask_ops(device, mask)
 
     with phase("text-location path"):
-        text_counts, text_metrics, chain_extractor = run_text_location_path(device, smi,
-                                                                            sam_params)
+        text_counts, text_metrics, chain = run_text_location_path(device, smi, sam_params)
         log(f"text-location path: extract_mask {text_metrics['text_mask_ms']:.2f} ms (median), "
             f"dino {text_metrics['dino_ms']:.2f} ms, {text_metrics['boxes_kept']} boxes kept, "
             f"max_memory_allocated {text_metrics['max_memory_allocated']} bytes, host syncs "
@@ -1796,14 +2152,16 @@ def main() -> int:
             f"on {smi}")
 
     with phase("text-style path"):
-        style_counts, style = run_text_style_path(device, smi, chain_extractor)
+        from tbist_tpu_torch.models import dino_sam
+
+        style_counts, style = run_text_style_path(device, smi,
+                                                  dino_sam.make_mask_extractor(*chain))
         log(f"text-style path: text_style_ms {style['text_style_ms']:.2f} (bf16), "
             f"{style['text_style_f32_ms']:.2f} (f32), batch 8 "
             f"{style['batch8_ms_per_image']:.2f} ms per image, {style['host_syncs']} host syncs, "
             f"peak {style['peak_bytes_of_call']} bytes above what was held; clip_text_ms "
             f"{style['clip_text_ms']:.2f}, t5_generate_ms {style['t5_generate_ms']:.2f}; full "
             f"chain {style['chain_ms']:.1f} ms; on {smi}")
-    del chain_extractor
 
     with phase("depth path"):
         depth_counts, dm = run_depth_path(device, smi)
@@ -1818,6 +2176,19 @@ def main() -> int:
             f"({STEPS // 4} steps); "
             f"launches {depth_counts}; on {smi}")
 
+    with phase("video path"):
+        video_counts, vm = run_video_path(device, smi, chain)
+        log(f"video path: video_gatys_s {vm['video_gatys_s']:.1f} ({STEPS} steps, "
+            f"{vm['video_gatys_frames_per_sec']:.3f} frames/s, "
+            f"{vm['video_gatys_ms_per_step']:.1f} ms a step of {VIDEO_LANES} lanes, "
+            f"max_memory_allocated {vm['video_gatys_max_memory_allocated']} bytes); "
+            f"video_text_frames_per_sec {vm['video_text_frames_per_sec']:.1f} (host syncs "
+            f"{vm['video_text_host_syncs_per_chunk']:.2f} a chunk, profiled busy share "
+            f"{vm['video_text_busy_share']:.3f}); masked chunk {vm['video_masked_chunk_ms']:.0f} ms; "
+            f"pixel art {vm['video_pixel_art_frames_per_sec']:.1f} frames/s; "
+            f"launches {video_counts}; on {smi}")
+    del chain
+
     launches_by_path = {
         "gatys": {k: v for k, v in counts.items() if k != "sam_attn"},
         "sam": {"sam_attn": counts["sam_attn"]},
@@ -1825,6 +2196,7 @@ def main() -> int:
         "effects": effect_counts,
         "text-style": style_counts,
         "depth": depth_counts,
+        "video": video_counts,
     }
     work = {
         "gatys": "one step of the Gatys path at 512px, f32: the sum over its shapes",

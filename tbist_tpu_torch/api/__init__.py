@@ -1,5 +1,5 @@
-"""Public API of the port: ``apply_image`` over ``EffectRequest``
-(counterpart of ``tbist_tpu.api``). Host I/O (PIL, file paths) happens
+"""Public API of the port: ``apply_image`` and ``apply_video`` over
+``EffectRequest`` (counterpart of ``tbist_tpu.api``). Host I/O (PIL, file paths) happens
 here; everything past this boundary is tensors on ``device``."""
 
 from __future__ import annotations
@@ -91,8 +91,30 @@ def _texture_only(prompt: str, registry: ModelRegistry,
     return from_device(m[None, ..., None].expand(1, *m.shape, 3))
 
 
-def apply_video(*args, **kwargs):
-    """Not ported yet: the video pipeline is ROADMAP Queue 1 slice 7."""
-    raise NotImplementedError(
-        "apply_video is not ported yet (ROADMAP Queue 1, slice 7: items 29-30)"
+def apply_video(
+    video_path: Optional[str],
+    request: EffectRequest,
+    style_image: Optional[ImageLike] = None,
+    style_image1: Optional[ImageLike] = None,
+    style_image2: Optional[ImageLike] = None,
+    color_palette_image: Optional[ImageLike] = None,
+    pixel_palette_image: Optional[ImageLike] = None,
+    registry: Optional[ModelRegistry] = None,
+    out_path: Optional[str] = None,
+    max_frames: Optional[int] = None,
+    metrics: Optional[RunMetrics] = None,
+    device="cuda",
+) -> Optional[str]:
+    """Process a video on ``device``; returns the output mp4's path or None."""
+    from tbist_tpu_torch.video.video import apply_video as _apply_video
+
+    device = resolve_device(device)
+    inputs = EffectInputs(
+        style_image=_as_device(style_image, device),
+        style_image1=_as_device(style_image1, device),
+        style_image2=_as_device(style_image2, device),
+        color_palette_image=_as_device(color_palette_image, device),
+        pixel_palette_image=_as_device(pixel_palette_image, device),
     )
+    return _apply_video(video_path, request, inputs, registry or ModelRegistry(device=device),
+                        out_path, max_frames, metrics, device)

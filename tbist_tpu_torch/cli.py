@@ -5,11 +5,10 @@ Example:
       --style data/style_imgs/starry_night.jpg --style-transfer \
       --steps 200 --out out.png
 
-It takes the JAX CLI's flags. ``--video`` names the one effect the port
-does not run yet: it stops the CLI with a message naming the ROADMAP item
-and exit code 2.
-``--aot-cache`` is accepted and does nothing (the eager port compiles
-nothing to cache; ROADMAP item 32). ``--resume-dir`` runs the optimisation
+It takes the JAX CLI's flags; ``--video`` (with ``--max-frames``,
+``--interp-frames`` and ``--slowmo``) writes an mp4 through
+``api.apply_video``. ``--aot-cache`` is accepted and does nothing (the
+eager port compiles nothing to cache; ROADMAP item 32). ``--resume-dir`` runs the optimisation
 in checkpointed segments where the JAX CLI does: with ``--style-transfer``,
 ``--image`` and ``--style``.
 """
@@ -30,12 +29,6 @@ from tbist_tpu_torch.utils.config import (
     VideoConfig,
 )
 from tbist_tpu_torch.utils.logging import RunMetrics, logger
-
-# (argparse dest, flag, the ROADMAP Queue 1 item that ports it)
-_UNPORTED_FLAGS = (
-    ("video", "--video", "slice 7, items 29-30"),
-)
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="tbist_tpu_torch — GPU style transfer")
@@ -177,11 +170,7 @@ def _resume(args, cfg: GatysConfig, metrics: RunMetrics) -> int:
 def main(argv=None, metrics: Optional[RunMetrics] = None) -> int:
     """Run the CLI on ``argv``; ``metrics``, when given, receives the run's
     timings and loss history."""
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    for dest, flag, item in _UNPORTED_FLAGS:
-        if getattr(args, dest):
-            parser.error(f"{flag} is not ported to the GPU yet (ROADMAP Queue 1, {item})")
+    args = build_parser().parse_args(argv)
     if args.aot_cache:
         logger.info("--aot-cache: the port has no executable cache yet (ROADMAP Queue 1, "
                     "item 32); ignored")
@@ -189,6 +178,20 @@ def main(argv=None, metrics: Optional[RunMetrics] = None) -> int:
     metrics = metrics if metrics is not None else RunMetrics()
     if args.resume_dir and args.style_transfer and args.image and args.style:
         return _resume(args, req.gatys, metrics)
+    if args.video:
+        path = api.apply_video(
+            args.video, req,
+            style_image=args.style, style_image1=args.style, style_image2=args.style2,
+            color_palette_image=args.color_palette, pixel_palette_image=args.pixel_from_image,
+            out_path=args.out, max_frames=args.max_frames, metrics=metrics, device=args.device,
+        )
+        if path is None:
+            logger.error("video processing returned None (missing inputs?)")
+            return 1
+        if metrics.degraded:
+            logger.warning("degraded components: %s", ", ".join(metrics.degraded))
+        logger.info("wrote %s", path)
+        return 0
     out = api.apply_image(
         args.image, req,
         style_image=args.style, style_image1=args.style, style_image2=args.style2,

@@ -119,10 +119,10 @@ def extract_location_mask(extractor: Callable, image: torch.Tensor, tcfg) -> tor
     return torch.from_numpy(full).to(device)
 
 
-def _mark_fallback(what: str) -> None:
-    degraded.mark("mask_extractor", "mask_fallback")
+def _mark_fallback(component: str) -> None:
+    degraded.mark(component, "mask_fallback")
     logger.warning("%s: no GroundingDINO/SAM weights or BERT vocab — using border-prior "
-                   "fallback segmentation", what)
+                   "fallback segmentation", component.replace("_", " "))
 
 
 @functools.lru_cache(maxsize=None)
@@ -135,7 +135,7 @@ def default_mask_extractor(device="cuda") -> Callable:
     try:
         return dino_sam.get_mask_extractor(device)
     except OSError:
-        _mark_fallback("mask extractor")
+        _mark_fallback("mask_extractor")
         return _fallback_location_mask
 
 
@@ -149,7 +149,7 @@ def default_batch_mask_extractor(device="cuda") -> Callable:
     try:
         return dino_sam.get_batch_mask_extractor(device)
     except OSError:
-        _mark_fallback("batch mask extractor")
+        _mark_fallback("batch_mask_extractor")
 
         def batch_fallback(frames, prompt: str, **_kw) -> torch.Tensor:
             is_tensor = isinstance(frames, torch.Tensor)

@@ -519,17 +519,21 @@ def get_mask_extractor(device="cuda") -> Callable:
     return make_mask_extractor(*get_loaded_params(device))
 
 
-@functools.lru_cache(maxsize=1)
-def get_batch_mask_extractor(device="cuda") -> Callable:
-    """Batch variant of ``get_mask_extractor``: (frames (B, H, W, 3) uint8,
-    prompt, ...) -> (B, H, W) bool masks through ``extract_masks_batch``.
-    Raises like it when a checkpoint is missing (``effects.masking`` falls
-    back)."""
-    dino_params, sam_params = get_loaded_params(device)
+def make_batch_mask_extractor(dino_params, sam_params, vocab=None) -> Callable:
+    """(frames (B, H, W, 3) uint8, prompt, det_size, det_max, seg_size) ->
+    (B, H, W) bool masks on the params' device, through
+    ``extract_masks_batch`` (the masked video lane's extractor)."""
 
     def extractor(frames, prompt: str, det_size: int = 800, det_max: int = 1333,
                   seg_size: int = 0) -> torch.Tensor:
-        return extract_masks_batch(dino_params, sam_params, frames, prompt, det_size=det_size,
-                                   det_max=det_max, seg_size=seg_size)
+        return extract_masks_batch(dino_params, sam_params, frames, prompt, vocab=vocab,
+                                   det_size=det_size, det_max=det_max, seg_size=seg_size)
 
     return extractor
+
+
+@functools.lru_cache(maxsize=1)
+def get_batch_mask_extractor(device="cuda") -> Callable:
+    """Batch variant of ``get_mask_extractor``; raises like it when a
+    checkpoint is missing (``effects.masking`` falls back)."""
+    return make_batch_mask_extractor(*get_loaded_params(device))

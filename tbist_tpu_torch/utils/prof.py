@@ -16,7 +16,9 @@ black_white_gradient.jpg), or the feed-forward text style through the
 pipeline (boat.jpg at 512², prompt "mosaic", the seeded Ghiasi weights and
 the prompt-seeded embedding, bf16 activations unless
 ``TBIST_GHIASI_BF16=0``), or depth-loss Gatys steps at 512px with the
-torch-seeded Depth-Anything-V2-Small in the loss graph::
+torch-seeded Depth-Anything-V2-Small in the loss graph, or the video
+lanes on car.mp4 (852x480): a Gatys chunk of 8 lanes at 480x864 and the
+text style's streaming lane::
 
     python -m tbist_tpu_torch.utils.prof --size 512 --steps 30
     python -m tbist_tpu_torch.utils.prof --path sam --steps 10
@@ -24,6 +26,7 @@ torch-seeded Depth-Anything-V2-Small in the loss graph::
     python -m tbist_tpu_torch.utils.prof --path effects --steps 10
     python -m tbist_tpu_torch.utils.prof --path text-style --steps 20
     python -m tbist_tpu_torch.utils.prof --path depth --steps 10
+    python -m tbist_tpu_torch.utils.prof --path video --steps 10
 
 It prints one JSON line: device time by kind and of the top kernels per
 step (per call for SAM and text-location), CUDA calls per step that can
@@ -42,7 +45,11 @@ host's own readings over repeated runs (wall and CPU ms a step,
 cudaMallocs, the card's SM clock and power; profiled, the busy share, the
 host's waits and the device's copies a step), and the batched lanes of
 MIP's batched plan (one lane and two: ms a step, and device time by kind
-for two).
+for two). For video, the Gatys chunk's device time by kind a step (K1 and
+K3 beside VGG's convolutions), and the text lane's host ms a chunk in each
+stage (decode on the decode-ahead thread, upload and forward on the main
+thread, the read-back's wait and the encode on the read-back thread), its
+frames a second unprofiled, and device time by kind and busy share a chunk.
 """
 
 from __future__ import annotations
@@ -544,6 +551,110 @@ def _lanes(content, style, vgg, steps: int) -> Dict:
     return out
 
 
+@contextlib.contextmanager
+def _host_spans(targets):
+    """Wrap (owner, name, label) functions so that each call adds its host
+    seconds to {label: [seconds, ...]}; a generator function's time is that
+    of each item it yields, on the thread that pulls it."""
+    import inspect
+
+    spans: Dict[str, list] = {}
+    saved = []
+    for owner, name, label in targets:
+        fn = getattr(owner, name)
+        if inspect.isgeneratorfunction(fn):
+            def wrapped(*a, _fn=fn, _label=label, **k):
+                gen = _fn(*a, **k)
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        item = next(gen)
+                    except StopIteration:
+                        return
+                    spans.setdefault(_label, []).append(time.perf_counter() - t0)
+                    yield item
+        else:
+            def wrapped(*a, _fn=fn, _label=label, **k):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **k)
+                finally:
+                    spans.setdefault(_label, []).append(time.perf_counter() - t0)
+        saved.append((owner, name, fn))
+        setattr(owner, name, wrapped)
+    try:
+        yield spans
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def _video(steps: int, trace_path: Optional[str]) -> Dict:
+    """The video lanes on car.mp4 at 852x480: a Gatys chunk (8 frames as
+    lanes at 480x864, ``steps`` L-BFGS steps), and the text lane through
+    ``video.apply_video`` (105 frames, "mosaic", 2 dissolve frames)."""
+    import numpy as np
+
+    from tbist_tpu_torch.parallel import batched
+    from tbist_tpu_torch.utils.config import (EffectRequest, GatysConfig, TextEffectConfig,
+                                              VideoConfig)
+    from tbist_tpu_torch.utils.imageio import image_resize_bilinear, load_image, to_device
+    from tbist_tpu_torch.video import video as vid
+    from tbist_tpu_torch.weights import vgg as vgg_weights
+
+    path = os.path.join(_ROOT, "data/content_vids/car.mp4")
+    frames = np.stack(vid.read_frames(path, 8)[0])
+    x = image_resize_bilinear(torch.from_numpy(frames).cuda().float() / 255.0, (480, 864))
+    style = to_device(load_image(os.path.join(_ROOT, "data/style_imgs/starry_night.jpg")),
+                      bucket=32, max_side=1024)
+    vgg = vgg_weights.get_params()
+    batched.run(GatysConfig(num_steps=2), vgg, x, [style])  # warm-up
+
+    def gatys_run():
+        batched.run(GatysConfig(num_steps=steps), vgg, x, [style])
+        torch.cuda.synchronize()
+
+    gatys = _profile(gatys_run, steps, trace_path)
+
+    req = EffectRequest(text=TextEffectConfig(style_prompt="mosaic"),
+                        video=VideoConfig(interpolation_frames=2))
+    out = os.path.join(_ROOT, "build", "prof_video_text.mp4")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+
+    def text_run():
+        vid.apply_video(path, req, out_path=out)
+
+    text_run()  # warm-up: the seeded Ghiasi weights, the prompt's embedding
+    t0 = time.perf_counter()
+    text_run()
+    wall = time.perf_counter() - t0
+    n_frames = len(vid.read_frames(path)[0])
+    chunks = -(-n_frames // req.video.frame_batch)
+    targets = [(vid, "read_frame_chunks", "decode (decode-ahead thread)"),
+               (vid, "upload", "upload (main thread)"),
+               (vid, "_text_fwd_u8", "forward queued (main thread)"),
+               (vid, "_dissolve_step", "dissolve queued (main thread)"),
+               (torch.cuda.Event, "synchronize", "read-back wait (read-back thread)"),
+               (vid._StreamWriter, "__call__", "encode (read-back thread)")]
+    with _host_spans(targets) as spans:
+        text_run()
+    host_ms = {label: sum(v) / chunks * 1e3 for label, v in spans.items()}
+    with trace(trace_path and f"{os.path.splitext(trace_path)[0]}_text.json") as p:
+        text_run()
+    kinds = device_breakdown(p)
+    return {"profile": "video lanes on car.mp4 852x480: gatys chunk of 8 lanes at 480x864, "
+                       "starry_night.jpg; text lane 'mosaic', 105 frames, 2 dissolve frames",
+            "gatys_chunk": gatys,
+            "text_lane": {"chunks": chunks, "wall_s_unprofiled": wall,
+                          "input_frames_per_sec_unprofiled": n_frames / wall,
+                          "host_ms_per_chunk": host_ms,
+                          "kernel_ms_per_chunk_by_kind": {
+                              k: v / chunks for k, v in kinds.get("kernel_ms_by_kind", {}).items()},
+                          "busy_share": kinds.get("busy_share"),
+                          "window_ms": kinds.get("window_ms"),
+                          "blocking_calls": kinds.get("blocking_calls")}}
+
+
 def _conv_kernels(call) -> Dict:
     """The kernels each Ghiasi convolution launches, by layer, with its
     operands' dtype: one ``call()`` records every ``ghiasi._conv``'s
@@ -583,7 +694,7 @@ def _conv_kernels(call) -> Dict:
 def _main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=("gatys", "sam", "text-location", "effects", "text-style",
-                                       "depth"), default="gatys")
+                                       "depth", "video"), default="gatys")
     ap.add_argument("--size", type=int, default=512, help="Gatys image side")
     ap.add_argument("--steps", type=int, default=30,
                     help="steps (Gatys) or calls (the other paths)")
@@ -605,6 +716,9 @@ def _main() -> None:
         return
     if args.path == "depth":
         print(json.dumps(_depth(args.steps, args.trace)))
+        return
+    if args.path == "video":
+        print(json.dumps(_video(args.steps, args.trace)))
         return
 
     from tbist_tpu_torch.optimize import gatys

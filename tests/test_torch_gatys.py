@@ -113,7 +113,7 @@ def test_api_defaults_to_cuda(monkeypatch):
     req = EffectRequest(style_transfer=True)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         api.apply_image(BOAT, req, style_image=STARRY)
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         api.apply_video(BOAT, req)
 
 
@@ -151,16 +151,37 @@ def test_cli_drives_the_port_on_cpu(tmp_path):
     assert np.asarray(Image.open(out)).shape == (64, 64, 3)
 
 
-# --aot-cache is a no-op, and --resume-dir counts only where the JAX CLI
-# resumes (tests/test_torch_dino_sam.py)
-@pytest.mark.parametrize("flag", [["--video", "x.mp4"], ["--video", "x.mp4", "--depth", "depth_loss"],
-                                  ["--video", "x.mp4", "--depth", "mip"],
-                                  ["--video", "x.mp4", "--text-style", "mosaic"]])
-def test_cli_unported_flags_exit_2(flag, capsys):
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["--image", BOAT, "--out", "o.png", "--device", "cpu", *flag])
-    assert exc.value.code == 2
-    assert "not ported" in capsys.readouterr().err
+# --video on the CPU with four flag sets (the fallback depth for both
+# --depth modes), against the JAX CLI with the same flags and VGG weights.
+# The test keeps the name it had while the port's CLI refused --video.
+@pytest.mark.parametrize("flag", [[], ["--depth", "depth_loss"], ["--depth", "mip"],
+                                  ["--text-style", "mosaic"]])
+def test_cli_unported_flags_exit_2(flag, tmp_path, monkeypatch):
+    import cv2
+
+    from tbist_tpu import cli as jcli
+    from tbist_tpu.weights import vgg as jvgg_weights
+    from tbist_tpu_torch.video import video as tvid
+    from tbist_tpu_torch.weights import vgg as tvgg_weights
+
+    monkeypatch.setenv("TBIST_GHIASI_BF16", "0")
+    monkeypatch.setattr(jvgg_weights, "get_params", lambda *a, **kw: JPARAMS)
+    monkeypatch.setattr(tvgg_weights, "get_params", lambda *a, **kw: TPARAMS)
+    video, style = str(tmp_path / "in.mp4"), str(tmp_path / "s.png")
+    Image.open(STARRY).convert("RGB").resize((32, 32)).save(style)
+    frame = np.asarray(Image.open(BOAT).convert("RGB").resize((32, 32)))[..., ::-1]
+    writer = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"mp4v"), 8.0, (32, 32))
+    for i in range(2):
+        writer.write(np.ascontiguousarray(np.roll(frame, 2 * i, axis=1)))
+    writer.release()
+    if "--depth" in flag:
+        flag = [*flag, "--style", style, "--steps", "1"]
+    outs = [str(tmp_path / "t.mp4"), str(tmp_path / "j.mp4")]
+    assert cli.main(["--video", video, "--out", outs[0], "--device", "cpu", *flag]) == 0
+    assert jcli.main(["--video", video, "--out", outs[1], *flag]) == 0
+    got, want = (np.stack(tvid.read_frames(p)[0]).astype(int) for p in outs)
+    assert got.shape == want.shape == (2, 32, 32, 3)
+    assert np.abs(got - want).max() <= 2
 
 
 @pytest.mark.parametrize("flag", [["--pixel-art"], ["--grayscale"],
