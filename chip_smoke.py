@@ -74,7 +74,24 @@ Phases, each fatal:
    the CPU; host syncs and the device's busy share on a shorter run), the
    masked-text lane with the seeded DINO+SAM batch extractor (K4 4 times)
    against each frame's own pipeline call, a pixel-art chain on all frames
-   against the CPU, MIP frame by frame, and the dissolve, card against CPU.
+   against the CPU, MIP frame by frame, and the dissolve, card against CPU;
+13. serve path: ``serve.make_server(port=0, device="cuda", batch_max=8)`` on
+   a thread: /healthz; /v1/image style transfer (400 steps at 512px, K1 and
+   K3) bit for bit against ``api.apply_image`` under cuDNN deterministic;
+   /v1/image text style under a location mask from the seeded DINO+SAM
+   chain (K4) against ``api.apply_image``; a burst of 8 concurrent
+   fast-text requests, batched; /v1/video text style on 8 frames of car.mp4
+   against ``api.apply_video``; 413 over ``max_body_mb``;
+14. cold and warm: ``python -m tbist_tpu_torch.serve`` in two processes, the
+   seconds to start and of the first and second Gatys request, without and
+   with ``--warmup-size 512 --warmup-programs gatys``;
+15. ui: ``ui.basic_cli.main`` with scripted input (mode 0) against
+   ``api.apply_image``; ``ui.gradio_app.build_demo`` raises ImportError
+   without gradio;
+16. weights: ``weights.verify_all.main`` with every family MISSING (exit 0,
+   and 1 with ``--strict``), a synthetic torchvision-layout VGG-19 .pth
+   through the port's loader on the card, and ``model_load_s`` per family,
+   cold and warm, in a fresh process.
 
 Every launch counter is zeroed just before each path and read just after.
 It prints one JSON line per kernel, shape and dtype, then the card's
@@ -2042,10 +2059,434 @@ def run_video_path(device, smi: str, chain):
     return total, metrics
 
 
+def _b64_file(path: str) -> str:
+    import base64
+
+    with open(path, "rb") as f:
+        return base64.b64encode(f.read()).decode("ascii")
+
+
+def _http(url: str, payload=None, timeout: float = 600.0):
+    """GET ``url`` (POST ``payload`` as JSON when given) -> (status, reply)."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data, {"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _png_array(b64: str):
+    import base64
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(base64.b64decode(b64))))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def _in_process_server(**kw):
+    """``serve.make_server(port=0, device="cuda", **kw)`` answering on a
+    thread; yields (server, url), and shuts it down after."""
+    import threading
+
+    from tbist_tpu_torch import serve
+
+    srv = serve.make_server(port=0, device="cuda", **kw)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield srv, f"http://127.0.0.1:{srv.server_address[1]}"
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(30)
+
+
+def run_serve_path(device, smi: str, chain):
+    """Phase 13: the HTTP server in this process, on a thread, with batching
+    (max 8): (a) /healthz; (b) /v1/image style transfer, 400 steps at 512px,
+    bit for bit against ``api.apply_image`` under cuDNN deterministic; (c)
+    /v1/image text style under a location mask from the seeded DINO+SAM
+    ``chain`` (K4 4 times an encoder call) against ``api.apply_image``; (d)
+    a burst of 8 concurrent fast-text requests, batched, each within one
+    level of a lone request; (e) /v1/video text style on 8 frames of
+    car.mp4 against ``api.apply_video``; (f) 413 over ``max_body_mb``.
+    Every count is zeroed just before each request and read just after;
+    returns ({kernel: launches over the requests}, metrics)."""
+    import concurrent.futures
+
+    import numpy as np
+    import torch
+
+    from tbist_tpu_torch import api, kernels, serve
+    from tbist_tpu_torch.effects import masking
+    from tbist_tpu_torch.models import dino_sam, sam
+    from tbist_tpu_torch.utils.request_schema import request_from_dict
+
+    boat = _b64_file(os.path.join(ROOT, "data/content_imgs/boat.jpg"))
+    starry = _b64_file(os.path.join(ROOT, "data/style_imgs/starry_night.jpg"))
+    per_call = len(sam.BASE.global_layers)
+    total = {name: 0 for name in kernels.launch_counts()}
+    metrics = {"card": smi}
+
+    def request(url, path, body, **launches):
+        """One HTTP request with every count zeroed just before it and read
+        just after; returns (status, reply, seconds)."""
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        status, reply = _http(url + path, body)
+        seconds = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        _expect_launches(counts, **launches)
+        for k, v in counts.items():
+            total[k] += v
+        if status != 200:
+            raise AssertionError(f"{path}: {status} {reply.get('error')}")
+        return reply, seconds
+
+    with _in_process_server(batch_max=8) as (srv, url):
+        # (a) what the server runs on
+        status, health = _http(url + "/healthz")
+        metrics["healthz"] = health
+        if not (status == 200 and health["backend"] == "cuda" and health["devices"] == 1
+                and health["batching"]["max_batch"] == 8):
+            raise AssertionError(f"/healthz: {status} {health}")
+
+        # (b) style transfer: K1 and K3 behind /v1/image, bit for bit
+        body = {"image": boat, "style_image": starry,
+                "request": {"style_transfer": True, "gatys": {"num_steps": STEPS}}}
+        saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            reply, seconds = request(url, "/v1/image", body, **gatys_launches(STEPS))
+            want = api.apply_image(serve._decode_image(boat), request_from_dict(body["request"]),
+                                   style_image=serve._decode_image(starry), device=device)
+        finally:
+            torch.backends.cudnn.deterministic = saved
+        got = _png_array(reply["image"])
+        differing = int((got != np.asarray(want)).any(-1).sum())
+        metrics.update(serve_gatys_s=seconds, serve_gatys_timings_s=reply["timings_s"],
+                       serve_gatys_pixels_differing=differing)
+        log(json.dumps({"serve_gatys": f"POST /v1/image style_transfer, {STEPS} steps at "
+                        f"{SIZE}px", "seconds": seconds, "timings_s": reply["timings_s"],
+                        "image": list(got.shape), "degraded": reply["degraded"],
+                        "pixels_differing_from_api": differing}))
+        if got.shape != (SIZE, SIZE, 3) or differing:
+            raise AssertionError(f"/v1/image style transfer: {got.shape}, {differing} pixels "
+                                 "differ from api.apply_image")
+
+        # (c) the text style under the seeded DINO+SAM location mask (K4):
+        # the registry each request builds looks its extractor up by name
+        extractor = dino_sam.make_mask_extractor(*chain)
+        real = masking.default_mask_extractor
+        masking.default_mask_extractor = lambda device="cuda": extractor
+        try:
+            body = {"image": boat, "request": {"text": {"style_prompt": STYLE_PROMPT,
+                                                        "location_prompt": TEXT_PROMPT}}}
+            reply, seconds = request(url, "/v1/image", body, sam_attn=per_call)
+            want = np.asarray(api.apply_image(serve._decode_image(boat),
+                                              request_from_dict(body["request"]), device=device))
+        finally:
+            masking.default_mask_extractor = real
+        got = _png_array(reply["image"])
+        share = float((got != want).any(-1).mean())
+        metrics.update(serve_masked_text_s=seconds, serve_masked_text_share_differing=share)
+        log(json.dumps({"serve_masked_text": f"POST /v1/image text style {STYLE_PROMPT!r} "
+                        f"under location {TEXT_PROMPT!r}, seeded SwinT-OGC + ViT-B",
+                        "seconds": seconds, "image": list(got.shape),
+                        "share_of_pixels_differing_from_api": share}))
+        if got.shape != (SIZE, SIZE, 3) or share > MASK_TOL:
+            raise AssertionError(f"/v1/image masked text: {share} of pixels differ")
+
+        # (d) a burst of 8 concurrent fast-text requests through the batcher
+        body = {"image": boat, "request": {"text": {"style_prompt": STYLE_PROMPT}}}
+        before = srv.batcher.batches_run
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(8) as ex:
+            burst = list(ex.map(lambda _: _http(url + "/v1/image", body), range(8)))
+        burst_s = time.perf_counter() - t0
+        _expect_launches(kernels.launch_counts())
+        batches = srv.batcher.batches_run - before
+        lone, lone_s = request(url, "/v1/image", body)
+        lone_img = _png_array(lone["image"]).astype(np.int16)
+        levels = [int(np.abs(_png_array(r["image"]).astype(np.int16) - lone_img).max())
+                  if s == 200 else -1 for s, r in burst]
+        metrics.update(serve_burst_s=burst_s, serve_burst_batches=batches,
+                       serve_lone_text_s=lone_s, batches_run=srv.batcher.batches_run)
+        log(json.dumps({"serve_burst": f"8 concurrent POST /v1/image text style "
+                        f"{STYLE_PROMPT!r}", "seconds": burst_s, "batches_run": batches,
+                        "batch_sizes": [r.get("batch") for _, r in burst],
+                        "lone_request_s": lone_s, "max_levels_from_lone": levels}))
+        if batches >= 8 or min(levels) < 0 or max(levels) > 1:
+            raise AssertionError(f"burst: {batches} batches, levels from lone {levels}")
+
+        # (e) /v1/video: the text lane on 8 frames of car.mp4, against the
+        # frames api.apply_video hands its writer
+        vreq = {"text": {"style_prompt": STYLE_PROMPT}}
+        with _written_frames() as served:
+            reply, seconds = request(url, "/v1/video", {"video": _b64_file(VIDEO),
+                                                        "request": vreq,
+                                                        "max_frames": VIDEO_LANES})
+        with _written_frames() as direct:
+            api.apply_video(VIDEO, request_from_dict(vreq), max_frames=VIDEO_LANES,
+                            out_path=os.path.join(ROOT, "build", "smoke_serve_video.mp4"),
+                            device=device)
+        served, direct = np.concatenate(served), np.concatenate(direct)
+        video_levels = int(_levels(served, direct).max())
+        metrics.update(serve_video_s=seconds, serve_video_max_levels=video_levels)
+        log(json.dumps({"serve_video": f"POST /v1/video text style, {VIDEO_LANES} frames of "
+                        "car.mp4", "seconds": seconds, "frames": list(served.shape),
+                        "reply_mp4_bytes": len(reply["video"]) * 3 // 4,
+                        "max_levels_from_api": video_levels}))
+        if served.shape != (VIDEO_LANES, *VIDEO_HW, 3) or video_levels > 1:
+            raise AssertionError(f"/v1/video: {served.shape}, {video_levels} levels from api")
+
+    # (f) a body over --max-body-mb is refused before it is read
+    with _in_process_server(max_body_mb=0.001) as (_, url):
+        status, reply = _http(url + "/v1/image", {"image": boat, "request": {}})
+    log(json.dumps({"serve_413": status, "error": reply.get("error")}))
+    if status != 413 or "max-body-mb" not in reply.get("error", ""):
+        raise AssertionError(f"oversized body: {status} {reply}")
+    return total, metrics
+
+
+def _serve_process(tag: str, flags, body, n_requests: int):
+    """``python -m tbist_tpu_torch.serve`` in a process of its own on a free
+    port: (seconds until /healthz answers, its /healthz, the seconds of each
+    of ``n_requests`` POSTs of ``body`` to /v1/image). The server's log goes
+    to build/serve_<tag>.log; the process is stopped after."""
+    port = _free_port()
+    url = f"http://127.0.0.1:{port}"
+    log_path = os.path.join(ROOT, "build", f"serve_{tag}.log")
+    with open(log_path, "w") as logf:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "tbist_tpu_torch.serve", "--port",
+                                 str(port), *flags], cwd=ROOT, stdout=logf,
+                                stderr=subprocess.STDOUT)
+        try:
+            while True:
+                if proc.poll() is not None:
+                    raise AssertionError(f"serve {tag} exited with {proc.returncode}; see "
+                                         f"{log_path}")
+                try:
+                    _, health = _http(url + "/healthz", timeout=5)
+                    break
+                except OSError:
+                    if time.perf_counter() - t0 > 600:
+                        raise
+                    time.sleep(0.1)
+            startup = time.perf_counter() - t0
+            seconds = []
+            for _ in range(n_requests):
+                t1 = time.perf_counter()
+                status, reply = _http(url + "/v1/image", body)
+                seconds.append(time.perf_counter() - t1)
+                if status != 200 or _png_array(reply["image"]).shape != (SIZE, SIZE, 3):
+                    raise AssertionError(f"serve {tag}: {status} {reply.get('error')}")
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    return startup, health, seconds
+
+
+def run_cold_warm(smi: str):
+    """Phase 14: what a fresh server process pays for its first Gatys
+    request (512px, 400 steps), with and without ``--warmup-size 512
+    --warmup-programs gatys``. The kernel libraries were built by phase 2,
+    so neither process runs nvcc; the VGG-19 draw is on disk
+    (weights_cache/torch/) from the earlier phases."""
+    body = {"image": _b64_file(os.path.join(ROOT, "data/content_imgs/boat.jpg")),
+            "style_image": _b64_file(os.path.join(ROOT, "data/style_imgs/starry_night.jpg")),
+            "request": {"style_transfer": True, "gatys": {"num_steps": STEPS}}}
+    cold_start, _, (first, second) = _serve_process("cold", [], body, 2)
+    warm_start, health, (warm_first,) = _serve_process(
+        "warm", ["--warmup-size", str(SIZE), "--warmup-programs", "gatys"], body, 1)
+    metrics = {"serve_startup_s": cold_start, "serve_first_request_s": first,
+               "serve_second_request_s": second, "warmed_startup_s": warm_start,
+               "warmup_s": health.get("warmup_s"), "warmed_first_request_s": warm_first,
+               "card": smi}
+    log(json.dumps({"serve_cold_warm": f"python -m tbist_tpu_torch.serve, POST /v1/image "
+                    f"style_transfer {STEPS} steps at {SIZE}px; kernel libraries already built "
+                    "(no nvcc in either process)", **metrics}))
+    if not warm_first <= first:
+        raise AssertionError(f"the warmed server's first request took {warm_first:.2f} s, the "
+                             f"cold one's {first:.2f} s")
+    return metrics
+
+
+def run_ui(device):
+    """Phase 15: ``ui.basic_cli.main`` with scripted input for mode 0 (the
+    text style on boat.jpg), its PNG against ``api.apply_image``; and
+    ``ui.gradio_app.build_demo`` raising ImportError without gradio."""
+    import builtins
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from tbist_tpu_torch import api, kernels
+    from tbist_tpu_torch.ui import basic_cli, gradio_app
+
+    boat = os.path.join(ROOT, "data/content_imgs/boat.jpg")
+    out_path = os.path.join(ROOT, "build", "smoke_basic_cli.png")
+    answers = iter(["0", boat, STYLE_PROMPT, out_path])
+    real = builtins.input
+    builtins.input = lambda prompt="": next(answers)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    try:
+        rc = basic_cli.main(["--device", "cuda"])
+    finally:
+        builtins.input = real
+    _expect_launches(kernels.launch_counts())
+    want = np.asarray(api.apply_image(boat, basic_cli._request_for(0, {"transfer": STYLE_PROMPT}),
+                                      device=device))
+    got = np.asarray(Image.open(out_path))
+    differing = int((got != want).any(-1).sum())
+    try:
+        gradio_app.build_demo(device="cuda")
+        gradio = "built"
+    except ImportError as e:
+        gradio = f"ImportError: {e}"
+    log(json.dumps({"ui_basic_cli": f"mode 0, {STYLE_PROMPT!r} on boat.jpg", "rc": rc,
+                    "image": list(got.shape), "pixels_differing_from_api": differing,
+                    "gradio_build_demo": gradio}))
+    if rc != 0 or got.shape != (SIZE, SIZE, 3) or differing or not gradio.startswith("Import"):
+        raise AssertionError(f"ui: rc {rc}, {differing} pixels differ, build_demo {gradio}")
+
+
+MODEL_FAMILIES = ("vgg", "ghiasi+mlp", "clip", "dino", "sam", "t5", "depth")
+
+
+def model_load_s():
+    """Seconds to resolve each model family on the card in this process,
+    each twice: cold (the family's first resolution in the process) and
+    warm (the second). Without checkpoints every family is a seeded draw:
+    VGG-19 and Ghiasi+CLIP-MLP through their production loaders (VGG's
+    seed cache emptied before the cold run, filled by it), the rest
+    through their ``init_params`` at full width, moved to the card. Run it
+    in a fresh process, as phase 16 does."""
+    import tempfile
+
+    import torch
+
+    from tbist_tpu_torch.models import clip_text, sam, t5
+    from tbist_tpu_torch.models import depth_anything as da
+    from tbist_tpu_torch.utils.imageio import tree_to
+    from tbist_tpu_torch.weights import dino_convert, ghiasi_convert, seed_cache
+    from tbist_tpu_torch.weights import sam as wsam
+    from tbist_tpu_torch.weights import vgg as vgg_weights
+
+    device = torch.device("cuda")
+    torch.ones(1, device=device).sum().item()  # the CUDA context, outside the times
+    gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+
+    def production(loader):
+        loader.cache_clear()
+        return loader(device=device)
+
+    families = {
+        "vgg": lambda: production(vgg_weights.get_params),
+        "ghiasi+mlp": lambda: production(ghiasi_convert.get_params),
+        "clip": lambda: tree_to(clip_text.init_params(gen()), device),
+        "dino": lambda: dino_convert.to_device(dino_convert.init_params(gen()), device),
+        "sam": lambda: wsam.init_params(gen(), sam.BASE, device=device),
+        "t5": lambda: tree_to(t5.init_params(gen(), t5.BASE), device),
+        "depth": lambda: tree_to(da.init_params(gen()), device),
+    }
+    out = {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        seed_cache._CACHE_DIR = tmp
+        for name in MODEL_FAMILIES:
+            times = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                params = families[name]()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            out[name] = {"cold": times[0], "warm": times[1],
+                         "parameters": sum(t.numel() for t in _leaves(params))}
+            del params
+    return out
+
+
+def run_weights(device, smi: str):
+    """Phase 16: the weight runbook and the loads. ``verify_all.main([])``
+    exits 0 with every family MISSING and 1 with ``--strict``; a synthetic
+    torchvision-layout VGG-19 .pth PASSes through the port's loader on the
+    card; then ``model_load_s`` in a fresh process."""
+    import tempfile
+
+    import torch
+
+    from tbist_tpu_torch.models import vgg19
+    from tbist_tpu_torch.weights import verify_all
+    from tbist_tpu_torch.weights import vgg as vgg_weights
+
+    rc, rc_strict = verify_all.main([]), verify_all.main(["--strict"])
+    with open(os.path.join(verify_all.CACHE, "MANIFEST_torch.json")) as f:
+        results = json.load(f)["results"]
+    missing = all(v.startswith("MISSING") for v in results.values()) and len(results) == 6
+    gen = torch.Generator().manual_seed(0)
+    sd = {}
+    convs = (spec for spec in vgg19.VGG19_LAYERS if len(spec) == 3)
+    for idx, (_, cin, cout) in zip(vgg_weights._TORCH_FEATURE_IDX, convs):
+        sd[f"features.{idx}.weight"] = torch.randn(cout, cin, 3, 3, generator=gen) * 0.05
+        sd[f"features.{idx}.bias"] = torch.zeros(cout)
+    saved = os.environ.get("TBIST_VGG19_PTH")
+    rep = verify_all.Report()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        pth = os.path.join(tmp, "vgg19.pth")
+        torch.save(sd, pth)
+        try:
+            vgg_ok = verify_all.verify_vgg(rep, pth, device)
+        finally:  # the synthetic weights must not outlive this check
+            if saved is None:
+                os.environ.pop("TBIST_VGG19_PTH", None)
+            else:
+                os.environ["TBIST_VGG19_PTH"] = saved
+            vgg_weights.get_params.cache_clear()
+    proc = subprocess.run([sys.executable, "-c", "import json, chip_smoke; "
+                           "print(json.dumps(chip_smoke.model_load_s()))"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"model_load_s: rc {proc.returncode}\n{proc.stderr[-4000:]}")
+    loads = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(json.dumps({"weights": "verify_all", "rc": rc, "rc_strict": rc_strict,
+                    "results": results, "synthetic_vgg": rep.results.get("vgg"),
+                    "model_load_s": loads, "card": smi}))
+    if not (rc == 0 and rc_strict == 1 and missing and vgg_ok
+            and rep.results["vgg"].startswith("PASS") and set(loads) == set(MODEL_FAMILIES)):
+        raise AssertionError(f"weights: rc {rc}/{rc_strict}, {results}, vgg {rep.results}")
+    return loads
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
-    if isinstance(tree, list):
+    if isinstance(tree, (list, tuple)):
         return [t for v in tree for t in _leaves(v)]
     return [tree]
 
@@ -2064,11 +2505,13 @@ SOURCES = {
 # K4 where the style is composited under a DINO+SAM location mask; depth:
 # K1 and K3 in depth-loss Gatys, both MIP plans and the batched lanes; video:
 # K1 and K3 in the Gatys, mixing and depth-loss lanes and in MIP frame by
-# frame, K4 in the masked-text lane's SAM encoder)
-PATHS = {"gram_fwd": "gatys, text-location, effects, depth, video",
-         "gram_bwd": "gatys, text-location, effects, depth, video",
-         "pool_bwd": "none", "relu_pool_bwd": "gatys, text-location, effects, depth, video",
-         "sam_attn": "sam, text-location, text-style, video"}
+# frame, K4 in the masked-text lane's SAM encoder; serve: K1 and K3 behind
+# /v1/image with style_transfer, K4 behind /v1/image with a location prompt)
+PATHS = {"gram_fwd": "gatys, text-location, effects, depth, video, serve",
+         "gram_bwd": "gatys, text-location, effects, depth, video, serve",
+         "pool_bwd": "none",
+         "relu_pool_bwd": "gatys, text-location, effects, depth, video, serve",
+         "sam_attn": "sam, text-location, text-style, video, serve"}
 
 
 T0 = time.perf_counter()
@@ -2187,7 +2630,33 @@ def main() -> int:
             f"{vm['video_text_busy_share']:.3f}); masked chunk {vm['video_masked_chunk_ms']:.0f} ms; "
             f"pixel art {vm['video_pixel_art_frames_per_sec']:.1f} frames/s; "
             f"launches {video_counts}; on {smi}")
+
+    with phase("serve path"):
+        serve_counts, sv = run_serve_path(device, smi, chain)
+        log(f"serve path: /v1/image Gatys {sv['serve_gatys_s']:.2f} s ({STEPS} steps, "
+            f"{sv['serve_gatys_pixels_differing']} pixels from api.apply_image), masked text "
+            f"{sv['serve_masked_text_s'] * 1e3:.0f} ms, burst of 8 in {sv['serve_burst_batches']} "
+            f"batches ({sv['serve_burst_s'] * 1e3:.0f} ms; a lone request "
+            f"{sv['serve_lone_text_s'] * 1e3:.0f} ms), /v1/video 8 frames "
+            f"{sv['serve_video_s']:.2f} s; launches {serve_counts}; on {smi}")
     del chain
+
+    with phase("cold and warm"):
+        cw = run_cold_warm(smi)
+        log(f"serve cold: start-up {cw['serve_startup_s']:.2f} s, serve_first_request_s "
+            f"{cw['serve_first_request_s']:.2f}, serve_second_request_s "
+            f"{cw['serve_second_request_s']:.2f}; warmed (--warmup-size {SIZE} "
+            f"--warmup-programs gatys): start-up {cw['warmed_startup_s']:.2f} s, warmup_s "
+            f"{cw['warmup_s']}, first request {cw['warmed_first_request_s']:.2f} s; kernel "
+            f"libraries already built, so no nvcc in either process; on {smi}")
+
+    with phase("ui"):
+        run_ui(device)
+
+    with phase("weights"):
+        loads = run_weights(device, smi)
+        log("model_load_s (cold, warm): " + ", ".join(
+            f"{k} {v['cold']:.3f}, {v['warm']:.3f}" for k, v in loads.items()) + f"; on {smi}")
 
     launches_by_path = {
         "gatys": {k: v for k, v in counts.items() if k != "sam_attn"},
@@ -2197,6 +2666,7 @@ def main() -> int:
         "text-style": style_counts,
         "depth": depth_counts,
         "video": video_counts,
+        "serve": serve_counts,
     }
     work = {
         "gatys": "one step of the Gatys path at 512px, f32: the sum over its shapes",

@@ -7,8 +7,11 @@ Example:
 
 It takes the JAX CLI's flags; ``--video`` (with ``--max-frames``,
 ``--interp-frames`` and ``--slowmo``) writes an mp4 through
-``api.apply_video``. ``--aot-cache`` is accepted and does nothing (the
-eager port compiles nothing to cache; ROADMAP item 32). ``--resume-dir`` runs the optimisation
+``api.apply_video``. ``--aot-cache`` is accepted and does nothing: eager
+PyTorch has no compiled executable to serialize, and the port's
+ahead-of-time artefacts, the kernels' ``nvcc`` libraries, are already kept
+in ``build/tbist_kernels/`` by ``kernels/_build.py``, keyed by source and
+flags. ``--resume-dir`` runs the optimisation
 in checkpointed segments where the JAX CLI does: with ``--style-transfer``,
 ``--image`` and ``--style``.
 """
@@ -77,8 +80,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 VGG trunk (Gram matrices accumulate in f32)")
     p.add_argument("--aot-cache", action="store_true",
-                   help="accepted for the JAX CLI's sake; the port has no "
-                   "executable cache yet and ignores it")
+                   help="accepted for the JAX CLI's sake and ignored: eager "
+                   "PyTorch has no executable to serialize, and the kernels' "
+                   "nvcc libraries are always kept in build/tbist_kernels/")
     p.add_argument("--resume-dir",
                    help="checkpoint dir: resumable optimization in segments")
     p.add_argument("--segment-steps", type=int, default=100,
@@ -172,8 +176,8 @@ def main(argv=None, metrics: Optional[RunMetrics] = None) -> int:
     timings and loss history."""
     args = build_parser().parse_args(argv)
     if args.aot_cache:
-        logger.info("--aot-cache: the port has no executable cache yet (ROADMAP Queue 1, "
-                    "item 32); ignored")
+        logger.info("--aot-cache: ignored; eager PyTorch has no executable to serialize, and "
+                    "the kernels' nvcc libraries are kept in build/tbist_kernels/ anyway")
     req = request_from_args(args)
     metrics = metrics if metrics is not None else RunMetrics()
     if args.resume_dir and args.style_transfer and args.image and args.style:

@@ -8,7 +8,9 @@
    (HWIO kernels, keys ``<layer>.kernel`` / ``<layer>.bias``).
 3. ``<repo>/weights_cache/vgg19_seeded_s<seed>.npz``: the JAX package's
    seeded-init cache (leaves by flattened pytree index).
-4. He-init from a ``torch.Generator`` seeded with ``seed``.
+4. He-init from a ``torch.Generator`` seeded with ``seed``, kept on disk in
+   ``<repo>/weights_cache/torch/vgg19_seeded_s<seed>.pt`` by
+   ``weights.seed_cache`` (``TBIST_SEED_CACHE=0`` draws anew).
 
 3 and 4 are placeholder weights: they mark ``degraded`` ``vgg_seeded``.
 None of these files is in git, so a fresh checkout runs on 4.
@@ -125,7 +127,14 @@ def get_params(seed: int = 0, device="cuda") -> vgg19.Params:
         )
         params = _load_seeded_npz(seed)
         if params is None:
-            params = vgg19.init_params(torch.Generator().manual_seed(seed))
+            from tbist_tpu_torch.weights.seed_cache import cached_seeded_init
+
+            spec = {name: {"weight": ((cout, cin, 3, 3), torch.float32),
+                           "bias": ((cout,), torch.float32)}
+                    for name, cin, cout in (s for s in vgg19.VGG19_LAYERS if len(s) == 3)}
+            params = cached_seeded_init(
+                f"vgg19_seeded_s{seed}",
+                lambda: vgg19.init_params(torch.Generator().manual_seed(seed)), spec)
     return {
         name: {k: v.to(device) for k, v in p.items()} for name, p in params.items()
     }

@@ -123,3 +123,87 @@ def test_prof_kinds_and_cpu_trace():
     with prof.trace() as p:
         torch.ones(4).sum()
     assert prof.device_breakdown(p) == {"device_events": 0}
+
+
+def test_full_f32_overlapping_threads_keep_tf32_off():
+    """Two threads' ``full_f32`` regions overlap: A enters, B enters, A
+    exits. B must still run with both TF32 flags off, and once both have
+    exited the flags must be what they were before A entered."""
+    import threading
+
+    from tbist_tpu_torch.utils.precision import full_f32
+
+    flags = lambda: (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    saved = flags()
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    a_in, b_in, a_out = threading.Event(), threading.Event(), threading.Event()
+    seen = {}
+
+    def thread_a():
+        with full_f32():
+            a_in.set()
+            b_in.wait(10)
+        a_out.set()
+
+    def thread_b():
+        a_in.wait(10)
+        with full_f32():
+            b_in.set()
+            a_out.wait(10)
+            seen["b_after_a_exit"] = flags()
+
+    try:
+        threads = [threading.Thread(target=f) for f in (thread_a, thread_b)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(30)
+        assert not any(t.is_alive() for t in threads)
+        assert a_out.is_set() and "b_after_a_exit" in seen
+        assert seen["b_after_a_exit"] == (False, False)
+        assert flags() == (True, True)
+        with full_f32():  # nested entries on one thread
+            with full_f32():
+                assert flags() == (False, False)
+            assert flags() == (False, False)
+        assert flags() == (True, True)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def test_full_f32_stress_many_threads():
+    """More threads than cores enter and leave nested ``full_f32`` regions
+    with a short switch interval: inside every region both flags read off,
+    and after the last exit they are restored."""
+    import sys
+    import threading
+
+    from tbist_tpu_torch.utils.precision import full_f32
+
+    flags = lambda: (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    saved, interval = flags(), sys.getswitchinterval()
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    bad = []
+
+    def work():
+        for _ in range(200):
+            with full_f32():
+                with full_f32():
+                    if flags() != (False, False):
+                        bad.append(flags())
+                if flags() != (False, False):
+                    bad.append(flags())
+
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(2 * (os.cpu_count() or 4))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        assert not any(t.is_alive() for t in threads)
+        assert bad == []
+        assert flags() == (True, True)
+    finally:
+        sys.setswitchinterval(interval)
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
