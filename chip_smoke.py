@@ -91,9 +91,18 @@ Phases, each fatal:
 16. weights: ``weights.verify_all.main`` with every family MISSING (exit 0,
    and 1 with ``--strict``), a synthetic torchvision-layout VGG-19 .pth
    through the port's loader on the card, and ``model_load_s`` per family,
-   cold and warm, in a fresh process.
+   cold and warm, in a fresh process;
+17. mesh path (``parallel.mesh``): on 4 x the card, sp Gatys at 512px (first
+   loss and gradient, and 20 steps' loss history, against the unsharded
+   run; K1 and K3 at a shard's shapes; launches counted), sp Ghiasi at 1024
+   width in bf16 and f32, the Gatys and text video lanes and
+   ``perform_transfer_batch`` split over dp, each against one card's run;
+   with two or more cards also the production mesh through the CLI and
+   ``api.apply_video`` (K4 on every card), against the same shard count on
+   one card, and sp Gatys at 1024² and 2048² on 1, 2 and all cards.
 
-Every launch counter is zeroed just before each path and read just after.
+Phases 1-16 run with ``TBIST_DISABLE_MESH=1``: on a host of several cards
+they stay on one, as their numbers and launch counts assume. Every launch counter is zeroed just before each path and read just after.
 It prints one JSON line per kernel, shape and dtype, then the card's
 ``nvidia-smi`` line, a ``{"kernels": [...]}`` summary, and last the
 ``{"ok": true, "device": ...}`` line. Without CUDA, or outside a checkout,
@@ -2483,6 +2492,505 @@ def run_weights(device, smi: str):
     return loads
 
 
+MESH_SP = 4  # the one-card mesh: 4 x the card, the shard count of a 4-card host
+MESH_STEPS = 20
+MESH_SCALING_STEPS = 40
+MESH_SCALING_SIZES = (512, 1024, 2048)
+MESH_PROFILED_STEPS = 5
+MESH_WARM_STEPS = 2  # a scaling run's warm-up before its timed steps
+GHIASI_SP_WIDTH = 1024  # text_transfer.sp_min_width()'s default
+
+
+@contextlib.contextmanager
+def _mesh_as(sp_mesh, dp_mesh):
+    """``parallel.mesh.production_mesh`` answering ``sp_mesh`` (and
+    ``dp_mesh`` to a dp-only caller) while the block runs: the mesh a host
+    of several cards would give, laid out here over the given devices."""
+    from tbist_tpu_torch.parallel import mesh as mesh_lib
+
+    real = mesh_lib.production_mesh
+    mesh_lib.production_mesh = lambda device="cuda", dp_only=False, sp_only=False: (
+        dp_mesh if dp_only else sp_mesh)
+    try:
+        yield
+    finally:
+        mesh_lib.production_mesh = real
+
+
+def sp_gatys_launches(steps: int, shards: int):
+    """K1 and K3 launches of one sp Gatys run: the style targets' Grams
+    once on the first card, then each step a Gram forward and backward per
+    style layer and a K3 at every pool, on every shard."""
+    n_style = len(STYLE_LAYERS)
+    return {"gram_fwd": n_style * (1 + shards * steps), "gram_bwd": n_style * shards * steps,
+            "relu_pool_bwd": len(POOL_CHANNELS) * shards * steps}
+
+
+def check_shard_kernels(device, hw):
+    """K1 (both directions) and K3 at one width shard's shapes, (H, W) =
+    ``hw``, against their plain versions, f32; logs a line a shape and
+    returns the largest error."""
+    import torch
+
+    from tbist_tpu_torch.kernels import gram, pool, relu_pool
+    from tbist_tpu_torch.utils.precision import full_f32
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    worst = 0.0
+    with full_f32():
+        for b, n, c in gram_shapes(hw):
+            x = torch.randn((b, n, c), generator=gen, device=device)
+            norm = 1.0 / (n * c)
+            m = torch.randn((b, c, c), generator=gen, device=device) * norm
+            m = (m + m.transpose(1, 2)).contiguous()
+            for name, got, want in (("gram_fwd", gram.gram_fwd(x, norm),
+                                     gram.gram_fwd_plain(x, norm)),
+                                    ("gram_bwd", gram.gram_bwd(x, m), gram.gram_bwd_plain(x, m))):
+                err = float((got - want).abs().max())
+                tol = 1e-5 * float(want.abs().max())
+                log(json.dumps({"shard_kernel": name, "shape": [b, n, c], "max_abs_err": err,
+                                "atol": tol, "ms": time_ms(
+                                    (lambda x, m: gram.gram_fwd(x, norm)) if name == "gram_fwd"
+                                    else gram.gram_bwd, (x, m), 20)}))
+                if not err <= tol:
+                    raise AssertionError(f"{name} at shard shape {(b, n, c)} disagrees: {err}")
+                worst = max(worst, err)
+        for shape in pool_shapes(hw):
+            b, h, w, c = shape
+            pre = (torch.rand(shape, generator=gen, device=device) * 4).round() / 4 - 0.5
+            out = torch.clamp_min(pool.pool_fwd(pre), 0)
+            g = torch.randn((b, h // 2, w // 2, c), generator=gen, device=device)
+            err = float((relu_pool.relu_pool_bwd(pre, out, g)
+                         - pool.pool_bwd_plain(pre, out, g, relu=True)).abs().max())
+            log(json.dumps({"shard_kernel": "relu_pool_bwd", "shape": list(shape),
+                            "max_abs_err": err, "atol": 1e-6,
+                            "ms": time_ms(relu_pool.relu_pool_bwd, (pre, out, g), 20)}))
+            if not err <= 1e-6:
+                raise AssertionError(f"relu_pool_bwd at shard shape {shape} disagrees: {err}")
+            worst = max(worst, err)
+    return worst
+
+
+def check_sam_attn_on(device, n: int) -> float:
+    """K4 on ``device`` at SAM ViT-B's global attention (64×64 tokens, d
+    64) with N = ``n``, against its plain version on the same card, f32
+    (``_check_sam_attn``'s tolerance). Returns the largest error."""
+    import torch
+
+    from tbist_tpu_torch.kernels import sam_attn
+    from tbist_tpu_torch.utils.precision import full_f32
+
+    h = w = d = 64
+    t = h * w
+    gen = torch.Generator(device=device).manual_seed(1)
+    q = torch.randn((n, t, d), generator=gen, device=device) * d ** -0.5
+    k, v = (torch.randn((n, t, d), generator=gen, device=device) for _ in range(2))
+    bh = torch.randn((n, t, h), generator=gen, device=device)
+    bw = torch.randn((n, t, w), generator=gen, device=device)
+    with full_f32():
+        got = sam_attn.attention_with_rel_bias(q, k, v, bh, bw, h, w)
+        want = sam_attn.attention_with_rel_bias_plain(q, k, v, bh, bw, h, w)
+    err = (got - want).abs()
+    ok = bool(torch.all(err <= 1e-5 * float(want.abs().max()) + 1e-4 * want.abs()))
+    if got.device != device or not ok:
+        raise AssertionError(f"sam_attn on {device} at N = {n}: {got.device}, "
+                             f"max abs err {float(err.max())}")
+    return float(err.max())
+
+
+def run_mesh_path(device, smi: str, chain):
+    """Phase 17: the device mesh. On 4 x this card (``MESH_SP`` entries of
+    one device: the decomposition of a 4-card host, its halos, sums in shard
+    order and lane splits, with every copy a no-op): (a) sp Gatys, boat x
+    starry_night at 512px through ``effects.style.style_transfer``, full
+    VGG-19 to conv5_1 in f32, 20 steps, its first loss and gradient and its
+    loss history against the unsharded run, K1 and K3 at a shard's shapes
+    against their plain versions and their launches counted; (b) sp Ghiasi
+    on face.jpg (1024²) through ``perform_transfer``, bf16 and f32, within
+    one level of the unsharded forward; (c) the video lanes split over dp:
+    an 8-frame chunk of car.mp4 through the Gatys lane (2 steps) and the
+    text lane, against the lanes on one card; (d) ``perform_transfer_batch``
+    of 8 over dp. With two or more cards it then runs the production mesh:
+    the CLI's 512px Gatys over every card (sp) and against the same shard
+    count on this card (bit for bit under cuDNN's deterministic mode, or
+    the phase fails),
+    ``api.apply_video`` with the masked text style and the seeded DINO+SAM
+    batch extractor (dp, K4 on every card, from the profiler's device
+    index), its masks and frames against the same lane on one card (phase
+    12's tolerance), K4 on every card against its plain version at the N
+    that card runs there, and sp Gatys at 512², 1024² and 2048² (40 warm
+    steps) on 1, 2 and all cards: iters/s, each card's busy share (profiled
+    over 5 steps) and peak memory. Returns ({kernel: launches over the
+    drives}, metrics)."""
+    import numpy as np
+    import torch
+
+    from tbist_tpu_torch import kernels
+    from tbist_tpu_torch.compose import pipeline as pipe
+    from tbist_tpu_torch.effects import style as style_fx
+    from tbist_tpu_torch.effects import text_transfer as tt
+    from tbist_tpu_torch.models import ghiasi
+    from tbist_tpu_torch.optimize import gatys
+    from tbist_tpu_torch.parallel import batched
+    from tbist_tpu_torch.parallel import mesh as mesh_lib
+    from tbist_tpu_torch.utils.config import EffectRequest, GatysConfig, TextEffectConfig
+    from tbist_tpu_torch.utils.imageio import load_image, to_device, to_uint8_device, upload
+    from tbist_tpu_torch.utils.logging import RunMetrics
+    from tbist_tpu_torch.utils.precision import full_f32
+    from tbist_tpu_torch.video import video as vid
+    from tbist_tpu_torch.weights import vgg as vgg_weights
+
+    total = {name: 0 for name in kernels.launch_counts()}
+    metrics = {"card": smi}
+    one = [device] * MESH_SP
+    sp_mesh = mesh_lib.make_mesh(one, dp=1, sp=MESH_SP)
+    dp_mesh = mesh_lib.make_mesh(one, dp=MESH_SP, sp=1)
+
+    def drive(fn, **launches):
+        """``fn()`` with the counts zeroed just before it and read just
+        after (checked against ``launches`` when given); returns (its
+        result, seconds, counts, peak bytes)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        if launches:
+            _expect_launches(counts, **launches)
+        for k, v in counts.items():
+            total[k] += v
+        return out, seconds, counts, torch.cuda.max_memory_allocated()
+
+    vgg = vgg_weights.get_params(device=device)
+    content = to_device(load_image(os.path.join(ROOT, "data/content_imgs/boat.jpg")),
+                        device=device)
+    style = to_device(load_image(os.path.join(ROOT, "data/style_imgs/starry_night.jpg")),
+                      device=device)
+    cfg = GatysConfig(num_steps=MESH_STEPS)
+
+    # (a) sp Gatys: one loss-and-gradient evaluation, then 20 steps each way
+    sharding = mesh_lib.width_sharding(SIZE, one, mesh_lib.VGG_ALIGN)
+    evals = []
+    with full_f32():
+        for sh in (None, sharding):
+            _, cf, tg, sg = batched.init_batch(cfg, vgg, content, [style], device, sh)
+            x = content.clone().requires_grad_(True)
+            if sh is None:
+                loss = gatys.lane_losses(cfg, vgg, x, cf, tg, sg, cfg.w_style)
+            else:
+                loss = gatys.lane_losses_sharded(cfg, batched.shard_params(vgg, sh, torch.float32),
+                                                 x, cf, tg, sg, cfg.w_style, sh)
+            (g,) = torch.autograd.grad(loss.sum(), x)
+            evals.append((loss.detach(), g))
+    loss_rel = float((evals[1][0] - evals[0][0]).abs().max() / evals[0][0].abs().max())
+    grad_l2 = _l2(evals[1][1], evals[0][1])
+    del evals, cf, tg, sg, x, g
+    runs = {}
+    for name, env, msh in (("unsharded", "1", None), ("sp", "0", sp_mesh)):
+        m = RunMetrics()
+        with _env("TBIST_DISABLE_MESH", env), _mesh_as(msh, msh):
+            out, seconds, counts, peak = drive(
+                lambda: style_fx.style_transfer(content, [style], cfg, vgg, metrics=m,
+                                                device=device),
+                **(gatys_launches(MESH_STEPS) if msh is None
+                   else sp_gatys_launches(MESH_STEPS, len(sharding.plan))))
+        runs[name] = (out, np.asarray(m.loss_history), m.extra["iters_per_sec"], peak, counts)
+    hist_rel = float(np.abs(runs["sp"][1] / runs["unsharded"][1] - 1).max())
+    levels = _levels(to_uint8_device(runs["sp"][0]).cpu().numpy(),
+                     to_uint8_device(runs["unsharded"][0]).cpu().numpy())
+    kernel_err = check_shard_kernels(device, (SIZE, SIZE // len(sharding.plan)))
+    metrics.update(sp_gatys_first_loss_rel=loss_rel, sp_gatys_first_grad_rel_l2=grad_l2,
+                   sp_gatys_history_max_rel=hist_rel,
+                   sp_gatys_iters_per_sec=runs["sp"][2],
+                   unsharded_iters_per_sec=runs["unsharded"][2],
+                   sp_gatys_max_memory_allocated=runs["sp"][3])
+    log(json.dumps({"mesh_sp_gatys": f"style_transfer boat x starry_night {SIZE}px, "
+                    f"{MESH_STEPS} steps, width over {len(sharding.plan)} shards "
+                    f"{list(sharding.plan)} on {MESH_SP} x one card",
+                    "first_loss_rel": loss_rel, "first_grad_rel_l2": grad_l2,
+                    "history_max_rel": hist_rel,
+                    "history_last": [float(runs["unsharded"][1][-1]), float(runs["sp"][1][-1])],
+                    "max_levels": int(levels.max()), "share_over_1": float((levels > 1).mean()),
+                    "iters_per_sec": {k: v[2] for k, v in runs.items()},
+                    "max_memory_allocated": {k: v[3] for k, v in runs.items()},
+                    "launches": runs["sp"][4], "shard_kernels_max_abs_err": kernel_err}))
+    if not (loss_rel <= 1e-5 and grad_l2 <= 1e-4):
+        raise AssertionError(f"sp loss/gradient off the unsharded: {loss_rel}, {grad_l2}")
+    if not hist_rel <= 1e-2:
+        raise AssertionError(f"sp loss history off the unsharded by {hist_rel}")
+    del runs
+
+    # (b) sp Ghiasi at 1024 width, bf16 and f32
+    face = to_device(load_image(os.path.join(ROOT, "data/content_imgs/face.jpg")), device=device)
+    if face.shape[2] != GHIASI_SP_WIDTH:
+        raise AssertionError(f"face.jpg is {tuple(face.shape)}, expected {GHIASI_SP_WIDTH} wide")
+    g_params, m_params = tt.default_params(device)
+    shard_calls = []
+    real_sharded = ghiasi.apply_sharded
+
+    def counted(params, shards, *a, **kw):
+        shard_calls.append([s.shape[2] for s in shards])
+        return real_sharded(params, shards, *a, **kw)
+
+    ghiasi.apply_sharded = counted
+    try:
+        for flag in ("1", "0"):
+            with _env("TBIST_GHIASI_BF16", flag), _mesh_as(sp_mesh, dp_mesh):
+                def call(use_mesh):
+                    return to_uint8_device(tt.perform_transfer(
+                        face, STYLE_PROMPT, g_params, m_params,
+                        text_encoder=tt.fallback_text_embedding, use_mesh=use_mesh)).cpu().numpy()
+                sp_out, sp_s, _, _ = drive(lambda: call(True))
+                ref, ref_s, _, _ = drive(lambda: call(False))
+            diff = _levels(sp_out, ref)
+            dtype = "bf16" if flag == "1" else "f32"
+            metrics[f"sp_ghiasi_{dtype}_max_levels"] = int(diff.max())
+            log(json.dumps({"mesh_sp_ghiasi": f"perform_transfer face.jpg 1024², {dtype}",
+                            "shards": shard_calls[-1], "max_levels": int(diff.max()),
+                            "share_over_0": float((diff > 0).mean()),
+                            "sp_ms": sp_s * 1e3, "unsharded_ms": ref_s * 1e3}))
+            if diff.max() > 1:
+                raise AssertionError(f"sp Ghiasi {dtype} {diff.max()} levels off the unsharded")
+    finally:
+        ghiasi.apply_sharded = real_sharded
+    if len(shard_calls) != 2 or shard_calls[0] != [GHIASI_SP_WIDTH // MESH_SP] * MESH_SP:
+        raise AssertionError(f"sp Ghiasi did not shard as planned: {shard_calls}")
+
+    # (c) the video lanes split over dp: Gatys (2 steps) and the text style
+    frames, _ = vid.read_frames(VIDEO, max_frames=VIDEO_LANES)
+    chunk0 = list(np.stack(frames))
+    reg = pipe.ModelRegistry(vgg_params=vgg, device=device)
+    inputs = pipe.EffectInputs(style_image=style)
+    greq = EffectRequest(style_transfer=True, gatys=GatysConfig(num_steps=2))
+    treq = EffectRequest(text=TextEffectConfig(style_prompt=STYLE_PROMPT))
+    lanes = {}
+    for name, env, msh in (("one", "1", None), ("dp", "0", dp_mesh)):
+        with _env("TBIST_DISABLE_MESH", env), _mesh_as(msh, msh):
+            lanes[name, "gatys"] = np.stack(drive(
+                lambda: vid._batched_style(chunk0, greq, inputs, reg, device=device),
+                **{k: v * (MESH_SP if msh is not None else 1)
+                   for k, v in gatys_launches(2).items()})[0])
+            lanes[name, "text"] = np.stack(drive(
+                lambda: vid._batched_text_transfer(chunk0, treq, device=device))[0])
+    for lane, bound in (("gatys", 2), ("text", 1)):
+        diff = _levels(lanes["dp", lane], lanes["one", lane])
+        metrics[f"dp_{lane}_max_levels"] = int(diff.max())
+        log(json.dumps({"mesh_dp_video": f"{lane} lane, {VIDEO_LANES} frames of car.mp4 over "
+                        f"dp {MESH_SP} (2 frames a card) against one card's {VIDEO_LANES} lanes",
+                        "max_levels": int(diff.max()), "share_over_0": float((diff > 0).mean())}))
+        if diff.max() > bound:
+            raise AssertionError(f"dp {lane} lane {diff.max()} levels off one card's lanes")
+
+    # (d) perform_transfer_batch of 8 over dp
+    imgs = upload(np.stack(frames), device).float() / 255.0
+    prompts = [STYLE_PROMPT, TEXTURE_PROMPT] * (VIDEO_LANES // 2)
+    outs = {}
+    for name, env in (("one", "1"), ("dp", "0")):
+        with _env("TBIST_DISABLE_MESH", env), _mesh_as(dp_mesh, dp_mesh):
+            outs[name] = drive(lambda: to_uint8_device(tt.perform_transfer_batch(
+                imgs, prompts, g_params, m_params,
+                text_encoder=tt.fallback_text_embedding)).cpu().numpy())[0]
+    diff = _levels(outs["dp"], outs["one"])
+    metrics["dp_text_batch_max_levels"] = int(diff.max())
+    log(json.dumps({"mesh_dp_text_batch": f"perform_transfer_batch of {VIDEO_LANES} over dp "
+                    f"{MESH_SP}", "max_levels": int(diff.max())}))
+    if diff.max() > 1:
+        raise AssertionError(f"dp text batch {diff.max()} levels off one card")
+    del lanes, outs, imgs
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"mesh path: {n} card visible; the production mesh's runs (the CLI and "
+            "apply_video over every card, and sp Gatys scaling on 1, 2 and all cards) were not "
+            f"made on this host; on {smi}")
+        metrics["cards"] = n
+        return total, metrics
+    metrics.update(run_production_mesh(device, smi, chain, n, drive))
+    return total, metrics
+
+
+def run_production_mesh(device, smi: str, chain, n: int, drive):
+    """The multi-card part of phase 17 (see ``run_mesh_path``)."""
+    import numpy as np
+    import torch
+
+    from tbist_tpu_torch import api, cli
+    from tbist_tpu_torch.compose import pipeline as pipe
+    from tbist_tpu_torch.effects import style as style_fx
+    from tbist_tpu_torch.models import dino_sam
+    from tbist_tpu_torch.parallel import mesh as mesh_lib
+    from tbist_tpu_torch.utils import prof
+    from tbist_tpu_torch.utils.config import EffectRequest, GatysConfig, TextEffectConfig
+    from tbist_tpu_torch.utils.imageio import image_resize_bilinear, load_image, to_device
+    from tbist_tpu_torch.utils.logging import RunMetrics
+    from tbist_tpu_torch.weights import vgg as vgg_weights
+
+    cards = [torch.device("cuda", i) for i in range(n)]
+    out = {"cards": n}
+    out_dir = os.path.join(ROOT, "build", "mesh")
+    os.makedirs(out_dir, exist_ok=True)
+    shards = len(mesh_lib.width_plan(SIZE, n, mesh_lib.VGG_ALIGN))
+    with _env("TBIST_DISABLE_MESH", "0"):
+        if mesh_lib.production_mesh(device, sp_only=True).shape != {"dp": 1, "sp": n}:
+            raise AssertionError("the production mesh does not span every card")
+        # the CLI over every card, then the same run's decomposition on one card
+        png = os.path.join(out_dir, "cli_sp.png")
+        argv = ["--image", os.path.join(ROOT, "data/content_imgs/boat.jpg"),
+                "--style", os.path.join(ROOT, "data/style_imgs/starry_night.jpg"),
+                "--style-transfer", "--steps", str(MESH_STEPS), "--out", png, "--device", "cuda"]
+        saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        try:
+            m_cli = RunMetrics()
+            rc, seconds, counts, _ = drive(lambda: cli.main(argv, metrics=m_cli),
+                                           **sp_gatys_launches(MESH_STEPS, shards))
+            if rc != 0:
+                raise AssertionError(f"cli.main over the production mesh returned {rc}")
+            vgg = vgg_weights.get_params(device=device)
+            content = to_device(load_image(argv[1]), device=device)
+            style = to_device(load_image(argv[3]), device=device)
+            cfg = GatysConfig(num_steps=MESH_STEPS)
+            res = {}
+            for name, msh in (("cards", None), ("one", mesh_lib.make_mesh([device] * n, 1, n))):
+                m = RunMetrics()
+                with contextlib.ExitStack() as stack:
+                    if msh is not None:
+                        stack.enter_context(_mesh_as(msh, msh))
+                    img = style_fx.style_transfer(content, [style], cfg, vgg, metrics=m,
+                                                  device=device)
+                res[name] = (img.cpu(), np.asarray(m.loss_history))
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+        bitwise = bool(torch.equal(res["cards"][0], res["one"][0]))
+        img_diff = float((res["cards"][0] - res["one"][0]).abs().max())
+        hist_diff = float(np.abs(res["cards"][1] - res["one"][1]).max())
+        out.update(cli_sp_iters_per_sec=m_cli.extra["iters_per_sec"],
+                   production_vs_one_card_bitwise=bitwise)
+        log(json.dumps({"mesh_production_cli": f"cli --style-transfer {SIZE}px, {MESH_STEPS} "
+                        f"steps, sp over {n} cards ({shards} shards)", "seconds": seconds,
+                        "iters_per_sec": m_cli.extra["iters_per_sec"], "launches": counts,
+                        "vs_one_card_same_shards_bitwise": bitwise,
+                        "vs_one_card_max_abs": img_diff, "history_max_abs": hist_diff}))
+        # the same shards, halos and shard-order sums on one card run the
+        # same kernels on the same inputs: a stale peer copy or halo shows here
+        if not bitwise or hist_diff != 0:
+            raise AssertionError(f"the production mesh differs from the same {shards} shards on "
+                                 f"one card: image {img_diff}, history {hist_diff}")
+
+        # apply_video, masked text style: each card's DINO+SAM on its frames,
+        # then the same lane on one card (TBIST_DISABLE_MESH=1, not counted)
+        extract = dino_sam.make_batch_mask_extractor(*chain)
+        calls = []  # (card, masks) of each extractor call, from the lane's threads
+
+        def recording(frames, prompt, **kw):
+            masks = extract(frames, prompt, **kw)
+            calls.append((frames.device.index, masks))
+            return masks
+
+        req = EffectRequest(text=TextEffectConfig(style_prompt=STYLE_PROMPT,
+                                                  location_prompt=TEXT_PROMPT))
+        lanes = {}
+        for name in ("cards", "one"):
+            calls.clear()
+            reg = pipe.ModelRegistry(device=device, batch_mask_extractor=recording)
+            run = lambda: api.apply_video(  # noqa: E731
+                VIDEO, req, registry=reg, out_path=os.path.join(out_dir, f"masked_{name}.mp4"),
+                max_frames=VIDEO_LANES, device=device)
+            with _written_frames() as written:
+                if name == "cards":
+                    with prof.trace() as p:
+                        path, seconds, counts, _ = drive(run)
+                else:
+                    with _env("TBIST_DISABLE_MESH", "1"):
+                        path = run()
+            if not path:
+                raise AssertionError(f"masked apply_video ({name}) returned {path}")
+            if len({c for c, _ in calls}) != len(calls):
+                raise AssertionError(f"masked lane ({name}): more than one chunk a card: "
+                                     f"{[c for c, _ in calls]}")
+            lanes[name] = (np.concatenate(written), torch.cat(
+                [torch.as_tensor(m).to(device) for _, m in sorted(calls, key=lambda c: c[0])]))
+        per_card = prof.busy_by_device(p, "sam_attn_kernel")
+        k4_cards = sorted(d for d, v in per_card.items() if v["matching"])
+        out["masked_video_k4_cards"] = k4_cards
+        # against one card's lane, phase 12's tolerance: masks apart on at
+        # most MASK_TOL of a frame (DINO and SAM at 2 frames a call against
+        # 8), and pixels over one level only within the feathering radius of
+        # a mask difference
+        mask_diff = lanes["cards"][1] != lanes["one"][1]
+        k = int(req.text.edge_smoothing) | 1
+        near = torch.nn.functional.max_pool2d(mask_diff.float()[:, None], k, 1, k // 2)[:, 0]
+        over = torch.from_numpy(
+            (_levels(lanes["cards"][0], lanes["one"][0]) > 1).any(-1)).to(device)
+        share_mask = mask_diff.float().mean((1, 2)).tolist()
+        unexplained = int((over & (near == 0)).sum())
+        # K4 on every card at the N each runs here (its frames x 12 heads)
+        k4_n = -(-VIDEO_LANES // min(n, VIDEO_LANES)) * 12
+        k4_err = {d.index: check_sam_attn_on(d, k4_n) for d in cards}
+        out.update(masked_video_mask_share=max(share_mask), masked_video_unexplained=unexplained,
+                   k4_per_card_max_abs_err=k4_err)
+        log(json.dumps({"mesh_production_video": f"api.apply_video masked text style, "
+                        f"{VIDEO_LANES} frames over dp {n}", "seconds": seconds,
+                        "launches": counts, "per_card": per_card,
+                        "mask_share_vs_one_card": share_mask,
+                        "pixels_over_1_level_outside_the_feathered_mask_difference": unexplained,
+                        "max_levels_vs_one_card": int(
+                            _levels(lanes["cards"][0], lanes["one"][0]).max()),
+                        f"k4_at_N_{k4_n}_max_abs_err_by_card": k4_err}))
+        if counts["sam_attn"] != 4 * min(n, VIDEO_LANES) or k4_cards != list(
+                range(min(n, VIDEO_LANES))):
+            raise AssertionError(f"K4 did not run on every card: {counts}, {per_card}")
+        if (lanes["cards"][0].shape != (VIDEO_LANES, *VIDEO_HW, 3)
+                or lanes["cards"][0].shape != lanes["one"][0].shape
+                or max(share_mask) > MASK_TOL or unexplained):
+            raise AssertionError(f"masked lane over dp {n} against one card: masks "
+                                 f"{share_mask}, unexplained pixels {unexplained}")
+        del lanes, mask_diff, near, over
+
+        # sp Gatys scaling: 1, 2 and all cards at 1024² and 2048²
+        scaling = []
+        for size in MESH_SCALING_SIZES:
+            big = image_resize_bilinear(content, (size, size))
+            for k in sorted({1, 2, n}):
+                msh = None if k == 1 else mesh_lib.make_mesh(cards[:k], dp=1, sp=k)
+                row = {"size": size, "cards": k}
+                with _env("TBIST_DISABLE_MESH", "1" if k == 1 else "0"), _mesh_as(msh, msh):
+                    # warm: the shard shapes' first calls and the replicas
+                    style_fx.style_transfer(big, [style], GatysConfig(
+                        num_steps=MESH_WARM_STEPS, max_side=size), vgg, device=device)
+                    torch.cuda.synchronize()
+                    for d in cards:
+                        torch.cuda.reset_peak_memory_stats(d)
+                    m = RunMetrics()
+                    style_fx.style_transfer(big, [style], GatysConfig(
+                        num_steps=MESH_SCALING_STEPS, max_side=size), vgg, metrics=m,
+                        device=device)
+                    torch.cuda.synchronize()
+                    row["iters_per_sec"] = m.extra["iters_per_sec"]
+                    row["max_memory_allocated"] = [torch.cuda.max_memory_allocated(d)
+                                                   for d in cards[:k]]
+                    with prof.trace() as p:
+                        style_fx.style_transfer(big, [style], GatysConfig(
+                            num_steps=MESH_PROFILED_STEPS, max_side=size), vgg, device=device)
+                        torch.cuda.synchronize()
+                    per_card = prof.busy_by_device(p)
+                    row["busy_share"] = {d: v["busy_share"] for d, v in per_card.items()}
+                    # the run's set-up (targets, replicas) included
+                    row["kernels_per_step"] = {d: v["kernels"] / MESH_PROFILED_STEPS
+                                               for d, v in per_card.items()}
+                log(json.dumps({"mesh_scaling": "sp Gatys, boat resized, "
+                                f"{MESH_SCALING_STEPS} steps after {MESH_WARM_STEPS} of "
+                                f"warm-up (busy share over {MESH_PROFILED_STEPS} more)", **row,
+                                "card": smi}))
+                scaling.append(row)
+                torch.cuda.empty_cache()
+        out["scaling"] = scaling
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
@@ -2506,12 +3014,14 @@ SOURCES = {
 # K1 and K3 in depth-loss Gatys, both MIP plans and the batched lanes; video:
 # K1 and K3 in the Gatys, mixing and depth-loss lanes and in MIP frame by
 # frame, K4 in the masked-text lane's SAM encoder; serve: K1 and K3 behind
-# /v1/image with style_transfer, K4 behind /v1/image with a location prompt)
-PATHS = {"gram_fwd": "gatys, text-location, effects, depth, video, serve",
-         "gram_bwd": "gatys, text-location, effects, depth, video, serve",
+# /v1/image with style_transfer, K4 behind /v1/image with a location prompt;
+# mesh: K1 and K3 on every width shard and every dp card's lanes, K4 on
+# every card of the masked video lane where there are several cards)
+PATHS = {"gram_fwd": "gatys, text-location, effects, depth, video, serve, mesh",
+         "gram_bwd": "gatys, text-location, effects, depth, video, serve, mesh",
          "pool_bwd": "none",
-         "relu_pool_bwd": "gatys, text-location, effects, depth, video, serve",
-         "sam_attn": "sam, text-location, text-style, video, serve"}
+         "relu_pool_bwd": "gatys, text-location, effects, depth, video, serve, mesh",
+         "sam_attn": "sam, text-location, text-style, video, serve, mesh (2+ cards)"}
 
 
 T0 = time.perf_counter()
@@ -2531,6 +3041,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     device = torch.device("cuda")
+    os.environ["TBIST_DISABLE_MESH"] = "1"  # phases 1-16 on one card; phase 17 shards
 
     with phase("device"):
         smi = subprocess.run(
@@ -2639,7 +3150,6 @@ def main() -> int:
             f"batches ({sv['serve_burst_s'] * 1e3:.0f} ms; a lone request "
             f"{sv['serve_lone_text_s'] * 1e3:.0f} ms), /v1/video 8 frames "
             f"{sv['serve_video_s']:.2f} s; launches {serve_counts}; on {smi}")
-    del chain
 
     with phase("cold and warm"):
         cw = run_cold_warm(smi)
@@ -2658,6 +3168,19 @@ def main() -> int:
         log("model_load_s (cold, warm): " + ", ".join(
             f"{k} {v['cold']:.3f}, {v['warm']:.3f}" for k, v in loads.items()) + f"; on {smi}")
 
+    with phase("mesh path"):
+        mesh_counts, mm = run_mesh_path(device, smi, chain)
+        log(f"mesh path: sp Gatys {mm['sp_gatys_iters_per_sec']:.2f} iters/s on {MESH_SP} x one "
+            f"card (unsharded {mm['unsharded_iters_per_sec']:.2f}), first loss rel "
+            f"{mm['sp_gatys_first_loss_rel']:.2e}, gradient rel L2 "
+            f"{mm['sp_gatys_first_grad_rel_l2']:.2e}, history max rel "
+            f"{mm['sp_gatys_history_max_rel']:.2e}; sp Ghiasi max levels bf16 "
+            f"{mm['sp_ghiasi_bf16_max_levels']}, f32 {mm['sp_ghiasi_f32_max_levels']}; dp lanes "
+            f"max levels Gatys {mm['dp_gatys_max_levels']}, text {mm['dp_text_max_levels']}, "
+            f"batch {mm['dp_text_batch_max_levels']}; {mm['cards']} card(s); launches "
+            f"{mesh_counts}; on {smi}")
+    del chain
+
     launches_by_path = {
         "gatys": {k: v for k, v in counts.items() if k != "sam_attn"},
         "sam": {"sam_attn": counts["sam_attn"]},
@@ -2667,6 +3190,7 @@ def main() -> int:
         "depth": depth_counts,
         "video": video_counts,
         "serve": serve_counts,
+        "mesh": mesh_counts,
     }
     work = {
         "gatys": "one step of the Gatys path at 512px, f32: the sum over its shapes",

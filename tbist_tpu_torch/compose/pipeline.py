@@ -30,7 +30,12 @@ from tbist_tpu_torch.utils.logging import RunMetrics
 
 @dataclasses.dataclass
 class ModelRegistry:
-    """Injected models; each resolves lazily on ``device`` when not given."""
+    """Injected models; each resolves lazily on ``device`` when not given.
+
+    On a mesh every card takes one copy of a parameter tree, made the first
+    time it asks and kept (``parallel.mesh.replicas_of``); the models that
+    run on each card's frames (the depth estimator, the batch mask
+    extractor) are ``mesh.Replicated`` the same way."""
 
     vgg_params: Any = None
     device: Any = "cuda"

@@ -6,8 +6,9 @@ MIP layering and the depth-loss variant.
   summed in float (no uint8 overflow). Two plans: sequential runs of the
   Gatys loop, or one batched run over the layer axis
   (``parallel.batched``) with the strengths as a per-lane style weight.
-  The JAX package picks the batched plan when a device mesh exists; the
-  port runs on one GPU, so the sequential plan is its default.
+  As in the JAX package the batched plan is taken when a device mesh
+  exists (two or more cards), with the layers split over dp; on one card
+  the sequential plan is the default.
 * ``depth_loss``: Gatys plus a depth term with the estimator in the graph
   (``optimize.gatys_depth``); the reference's term has no gradient
   (Style_a3.py:144-146).
@@ -93,9 +94,16 @@ def style_mip(
     device="cuda",
 ) -> torch.Tensor:
     """Multi-plane-image stylization (style_transfer_depth.py:74-90):
-    ``batched`` False or None runs the n layers one after another, True as
-    one batched run. Returns (1, H, W, 3)."""
+    ``batched`` False runs the n layers one after another, True as one
+    batched run; None picks the batched plan if and only if a production
+    mesh exists, and then splits the layers over its cards (dp). Returns
+    (1, H, W, 3)."""
+    from tbist_tpu_torch.parallel import mesh as mesh_lib
+
     device = resolve_device(device)
+    mesh = mesh_lib.production_mesh(device, dp_only=True)
+    if batched is None:
+        batched = mesh is not None
     if vgg_params is None:
         vgg_params = vgg_weights.get_params(device=device)
     image = image.to(device, torch.float32)
@@ -119,7 +127,7 @@ def style_mip(
     t0 = time.perf_counter()
     stylized = batched_lib.run(gcfg, vgg_params, style_fx._bucket(layers, gcfg),
                                [style_fx._bucket(style.to(device, torch.float32), gcfg)],
-                               w_style=w_style, device=device)
+                               w_style=w_style, device=device, mesh=mesh)
     stylized[0, 0, 0, 0].item()  # wait for the run on one value, not the stack
     if metrics is not None:
         metrics.timings_s["mip_batched"] = time.perf_counter() - t0

@@ -7,7 +7,10 @@ involved, so a source builds in seconds. The libraries go to
 source and the flags, so an unchanged source is not rebuilt. ``build``
 starts one ``nvcc`` per missing library, all at once, and waits for them.
 
-Nothing is compiled at import: the first kernel launch builds what it needs.
+Nothing is compiled at import: the first kernel launch builds what it needs,
+under a lock, since the backward engine's threads (one a card) may launch a
+kernel for the first time at once. ``count_launch`` adds one to a wrapper's
+launch count under a lock for the same reason.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import Dict, Sequence
 
@@ -88,8 +92,19 @@ def build(sources: Sequence[str] = SOURCES) -> Dict[str, str]:
                 os.unlink(tmp)
 
 
+_BUILD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
 @functools.lru_cache(maxsize=None)
 def library(source: str) -> ctypes.CDLL:
     """The loaded library of ``source``, built first if it is missing."""
-    build([source])
-    return ctypes.CDLL(library_path(source))
+    with _BUILD_LOCK:
+        build([source])
+        return ctypes.CDLL(library_path(source))
+
+
+def count_launch(wrapper) -> None:
+    """``wrapper.launches += 1``, atomic across threads."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1

@@ -151,7 +151,7 @@ def gram_fwd(x: torch.Tensor, norm: float) -> torch.Tensor:
         )
     if err:
         raise RuntimeError(f"gram_fwd: kernel launch failed with CUDA error {err}")
-    gram_fwd.launches += 1
+    _build.count_launch(gram_fwd)
     return out
 
 
@@ -177,7 +177,7 @@ def gram_bwd(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
         )
     if err:
         raise RuntimeError(f"gram_bwd: kernel launch failed with CUDA error {err}")
-    gram_bwd.launches += 1
+    _build.count_launch(gram_bwd)
     return dx
 
 

@@ -91,7 +91,7 @@ def pool_bwd(x: torch.Tensor, out: torch.Tensor, g: torch.Tensor) -> torch.Tenso
     if x.device.type == "cpu":
         return pool_bwd_plain(x, out, g)
     gx = launch_pool_bwd("pool_bwd", x, out, g, fuse_relu=False)
-    pool_bwd.launches += 1
+    _build.count_launch(pool_bwd)
     return gx
 
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from tbist_tpu_torch.kernels import _build
 from tbist_tpu_torch.kernels.pool import launch_pool_bwd, pool_bwd_plain, pool_fwd
 
 
@@ -22,7 +23,7 @@ def relu_pool_bwd(pre: torch.Tensor, out: torch.Tensor, g: torch.Tensor) -> torc
     if pre.device.type == "cpu":
         return pool_bwd_plain(pre, out, g, relu=True)
     gx = launch_pool_bwd("relu_pool_bwd", pre, out, g, fuse_relu=True)
-    relu_pool_bwd.launches += 1
+    _build.count_launch(relu_pool_bwd)
     return gx
 
 

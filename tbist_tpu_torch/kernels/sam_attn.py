@@ -166,7 +166,7 @@ def _launch(q, k, v, bias_h, bias_w, h: int, w: int, splits: Optional[int]) -> t
                            "more shared memory than a block can have; nothing was launched")
     if err:
         raise RuntimeError(f"sam_attn: kernel launch failed with CUDA error {err}")
-    attention_with_rel_bias.launches += 1
+    _build.count_launch(attention_with_rel_bias)
     return out
 
 

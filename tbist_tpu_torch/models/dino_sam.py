@@ -33,6 +33,7 @@ import torch
 
 from tbist_tpu_torch.models import dino as dino_lib
 from tbist_tpu_torch.models import sam as sam_lib
+from tbist_tpu_torch.parallel import mesh as mesh_lib
 from tbist_tpu_torch.utils.imageio import image_resize_bilinear, resolve_device
 from tbist_tpu_torch.utils.logging import logger
 from tbist_tpu_torch.utils.precision import full_f32
@@ -521,15 +522,17 @@ def get_mask_extractor(device="cuda") -> Callable:
 
 def make_batch_mask_extractor(dino_params, sam_params, vocab=None) -> Callable:
     """(frames (B, H, W, 3) uint8, prompt, det_size, det_max, seg_size) ->
-    (B, H, W) bool masks on the params' device, through
-    ``extract_masks_batch`` (the masked video lane's extractor)."""
+    (B, H, W) bool masks, through ``extract_masks_batch`` (the masked video
+    lane's extractor): on the frames' card when they are a tensor there,
+    with a replica of both models made the first time (the lane's dp
+    mesh), else on the params' device."""
 
-    def extractor(frames, prompt: str, det_size: int = 800, det_max: int = 1333,
+    def extractor(params, frames, prompt: str, det_size: int = 800, det_max: int = 1333,
                   seg_size: int = 0) -> torch.Tensor:
-        return extract_masks_batch(dino_params, sam_params, frames, prompt, vocab=vocab,
-                                   det_size=det_size, det_max=det_max, seg_size=seg_size)
+        return extract_masks_batch(*params, frames, prompt, vocab=vocab, det_size=det_size,
+                                   det_max=det_max, seg_size=seg_size)
 
-    return extractor
+    return mesh_lib.Replicated(extractor, (dino_params, sam_params))
 
 
 @functools.lru_cache(maxsize=1)

@@ -20,14 +20,24 @@ package does; instance-norm statistics and the FiLM products stay f32.
 
 Parameters: ``{layer: {"weight": (O, I, k, k), "bias", ...}}``; FiLM
 linears ``{"weight": (100, C), "bias": (C,)}`` in the JAX (in, out) layout.
+
+``apply_sharded`` runs the same network over an image whose width is cut
+into shards on several devices (``parallel.mesh``, 4-column blocks, so the
+stride-2 convolutions and the 2× upsample stay on each shard): a k×k conv
+first takes k//2 columns from either neighbour, and reflects at the image's
+own edges only; the instance-norm mean and variance are summed over all
+shards on the first device, in f32, and divided by the whole image's count;
+FiLM is local.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from tbist_tpu_torch.parallel import mesh as mesh_lib
 
 Params = Dict[str, Dict]
 
@@ -102,3 +112,65 @@ def apply(params: Params, x: torch.Tensor, style: torch.Tensor,
     for kind, name, _, _, k, stride in LAYERS:
         x = _layer(kind, name, params[name], x, style, k, stride, compute_dtype)
     return torch.sigmoid(x.float()).permute(0, 2, 3, 1)
+
+
+def _conv_sharded(xs: Sequence[torch.Tensor], ps, pad: int, stride: int,
+                  dtype: torch.dtype) -> List[torch.Tensor]:
+    """``_conv`` over NCHW width shards: the width's padding is the
+    neighbours' columns (a reflection at the image's edges), the height's
+    a local reflection."""
+    out = []
+    for x, p in zip(mesh_lib.halo(xs, pad, dim=3, edge="reflect"), ps):
+        if pad:
+            x = F.pad(x, (0, 0, pad, pad), mode="reflect")
+        out.append(F.conv2d(x.to(dtype), p["weight"].to(dtype), stride=stride)
+                   + p["bias"].to(dtype)[None, :, None, None])
+    return out
+
+
+def _instance_norm_sharded(xs: Sequence[torch.Tensor], eps: float = 1e-5) -> List[torch.Tensor]:
+    """``_instance_norm`` of the image the NCHW shards make up: its mean,
+    then its biased variance about that mean, each a sum over the shards on
+    the first device in shard order over the whole image's count, in f32."""
+    first = xs[0].device
+    count = xs[0].shape[2] * sum(x.shape[3] for x in xs)
+    mean = mesh_lib.sum_on([x.float().sum(dim=(2, 3)) for x in xs], first) / count
+    means = [mean.to(x.device, non_blocking=True)[:, :, None, None] for x in xs]
+    var = mesh_lib.sum_on([(x.float() - m).square().sum(dim=(2, 3))
+                           for x, m in zip(xs, means)], first) / count
+    scale = torch.rsqrt(var + eps)
+    return [(x - m.to(x.dtype)) * scale.to(x.device, non_blocking=True)[:, :, None, None].to(x.dtype)
+            for x, m in zip(xs, means)]
+
+
+def apply_sharded(params: Sequence[Params], shards: Sequence[torch.Tensor],
+                  styles: Sequence[torch.Tensor],
+                  compute_dtype: torch.dtype = torch.float32) -> List[torch.Tensor]:
+    """``apply`` over an NHWC image cut along its width into ``shards``
+    (``mesh.width_plan`` with ``mesh.GHIASI_ALIGN`` and
+    ``mesh.GHIASI_MIN_WIDTH``), shard ``i`` on its device with ``params[i]``
+    and ``styles[i]`` there. Returns each shard's sigmoid output, NHWC f32;
+    joined along the width they are ``apply`` of the whole image."""
+    xs = [x.permute(0, 3, 1, 2) for x in shards]
+
+    def film(ys, name, g, b):
+        return [_film(y, p[name][g], p[name][b], st) for y, p, st in zip(ys, params, styles)]
+
+    for kind, name, _, _, k, stride in LAYERS:
+        ps = [p[name] for p in params]
+        if kind == "conv":
+            xs = [torch.relu(y) for y in
+                  _instance_norm_sharded(_conv_sharded(xs, ps, k // 2, stride, compute_dtype))]
+        elif kind == "res":
+            y = _instance_norm_sharded(_conv_sharded(xs, [p["conv1"] for p in ps], 1, 1,
+                                                     compute_dtype))
+            y = [torch.relu(t) for t in film(y, name, "fc_gamma1", "fc_beta1")]
+            y = _instance_norm_sharded(_conv_sharded(y, [p["conv2"] for p in ps], 1, 1,
+                                                     compute_dtype))
+            xs = [x + t for x, t in zip(xs, film(y, name, "fc_gamma2", "fc_beta2"))]
+        else:
+            h = xs if stride is None else [_upsample_nearest_2x(x) for x in xs]
+            h = film(_instance_norm_sharded(_conv_sharded(h, ps, k // 2, 1, compute_dtype)),
+                     name, "fc_gamma", "fc_beta")
+            xs = h if name == "dec3" else [torch.relu(t) for t in h]
+    return [torch.sigmoid(x.float()).permute(0, 2, 3, 1) for x in xs]

@@ -15,16 +15,24 @@ Every pool is ``relu_max_pool_2x2_even`` (kernel K3): the relu is applied
 inside it, and its backward splits ties evenly as JAX does.
 ``F.max_pool2d``'s backward, which sends the gradient to one argmax, is
 never used.
+
+``extract_features_sharded`` runs the same trunk over an image whose width
+is cut into shards on several devices (``parallel.mesh``): before every 3×3
+conv each shard takes one column from either neighbour (zeros at the
+image's edges) and convolves with padding (1, 0), so each shard's output is
+exactly its columns of the whole image's; relu and the pools (K3) stay on
+the shard's own device.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from tbist_tpu_torch.kernels.relu_pool import relu_max_pool_2x2_even
+from tbist_tpu_torch.parallel import mesh as mesh_lib
 
 # (layer_name, in_channels, out_channels); "pool" entries are 2x2/2 maxpools.
 # Mirrors torchvision vgg19().features ordering.
@@ -59,16 +67,32 @@ CONV_NAMES: Tuple[str, ...] = tuple(
 Params = Dict[str, Dict[str, torch.Tensor]]
 
 
-def _conv(x: torch.Tensor, p: Dict[str, torch.Tensor], compute_dtype) -> torch.Tensor:
+def _conv(x: torch.Tensor, p: Dict[str, torch.Tensor], compute_dtype,
+          padding=1) -> torch.Tensor:
     out = F.conv2d(
         x.to(compute_dtype).permute(0, 3, 1, 2),
         p["weight"].to(compute_dtype),
         p["bias"].to(compute_dtype),
-        padding=1,
+        padding=padding,
     )
     # No copy when the conv returned channels-last, as cuDNN does for
     # channels-last input; the kernels need contiguous NHWC either way.
     return out.permute(0, 2, 3, 1).contiguous()
+
+
+def _deepest(layers: Sequence[str]) -> int:
+    unknown = set(layers) - set(CONV_NAMES)
+    if unknown:
+        raise ValueError(f"Unknown VGG-19 layers: {sorted(unknown)}")
+    return max(CONV_NAMES.index(l) for l in layers)
+
+
+def _pool(pre: torch.Tensor) -> torch.Tensor:
+    """relu + 2x2 max, odd remainders dropped."""
+    _, ph, pw, _ = pre.shape
+    if ph % 2 or pw % 2:
+        pre = pre[:, : ph - ph % 2, : pw - pw % 2, :].contiguous()
+    return relu_max_pool_2x2_even(pre)
 
 
 def extract_features(
@@ -83,21 +107,15 @@ def extract_features(
     ``{layer: pre-ReLU conv activation (B, H', W', C')}`` in compute_dtype.
     """
     wanted = set(layers)
-    unknown = wanted - set(CONV_NAMES)
-    if unknown:
-        raise ValueError(f"Unknown VGG-19 layers: {sorted(unknown)}")
-    deepest = max(CONV_NAMES.index(l) for l in layers)
+    deepest = _deepest(layers)
 
     feats: Dict[str, torch.Tensor] = {}
     h = x  # input of the next conv; None until the relu of `pre` is needed
     pre = None
     conv_idx = -1
     for spec in VGG19_LAYERS:
-        if len(spec) == 1:  # pool: relu + 2x2 max, odd remainders dropped
-            _, ph, pw, _ = pre.shape
-            if ph % 2 or pw % 2:
-                pre = pre[:, : ph - ph % 2, : pw - pw % 2, :].contiguous()
-            h = relu_max_pool_2x2_even(pre)
+        if len(spec) == 1:
+            h = _pool(pre)
             continue
         name = spec[0]
         conv_idx += 1
@@ -107,6 +125,42 @@ def extract_features(
         h = None
         if name in wanted:
             feats[name] = pre
+        if conv_idx == deepest:
+            break
+    return feats
+
+
+def extract_features_sharded(
+    params: Sequence[Params],
+    shards: Sequence[torch.Tensor],
+    layers: Sequence[str],
+    compute_dtype: torch.dtype = torch.float32,
+) -> Dict[str, List[torch.Tensor]]:
+    """``extract_features`` over a normalized NHWC batch cut along its width
+    into ``shards`` (``mesh.width_plan`` with ``mesh.VGG_ALIGN``, so every
+    shard but the last keeps an even width down to conv5_1), shard ``i``
+    on its own device with ``params[i]`` there. Returns ``{layer: [each
+    shard's pre-ReLU activation]}``, whose concatenation along the width is
+    ``extract_features`` of the whole image."""
+    wanted = set(layers)
+    deepest = _deepest(layers)
+    feats: Dict[str, List[torch.Tensor]] = {}
+    hs = list(shards)
+    pres = None
+    conv_idx = -1
+    for spec in VGG19_LAYERS:
+        if len(spec) == 1:
+            hs = [_pool(pre) for pre in pres]
+            continue
+        name = spec[0]
+        conv_idx += 1
+        if hs is None:
+            hs = [torch.relu(pre) for pre in pres]
+        pres = [_conv(h, p[name], compute_dtype, padding=(1, 0))
+                for h, p in zip(mesh_lib.halo(hs, 1, dim=2), params)]
+        hs = None
+        if name in wanted:
+            feats[name] = pres
         if conv_idx == deepest:
             break
     return feats

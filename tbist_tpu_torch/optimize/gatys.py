@@ -27,6 +27,7 @@ from tbist_tpu_torch.models import channel_attention, vgg19
 from tbist_tpu_torch.ops import losses
 from tbist_tpu_torch.ops.mip import normalize_depth
 from tbist_tpu_torch.optimize import lbfgs
+from tbist_tpu_torch.parallel import mesh as mesh_lib
 from tbist_tpu_torch.utils.config import VGG_MEAN, VGG_STD, GatysConfig
 from tbist_tpu_torch.utils.imageio import resolve_device, upload
 from tbist_tpu_torch.utils.precision import full_f32
@@ -52,7 +53,10 @@ def random_start(shape, seed: int, device) -> torch.Tensor:
 
 
 def params_on(vgg_params, device, dtype: torch.dtype):
-    """The VGG parameters on ``device`` in the trunk's compute dtype."""
+    """The VGG parameters on ``device`` in the trunk's compute dtype.
+    ``vgg_params`` may be a ``mesh.Replicas``, whose copy there is kept."""
+    if isinstance(vgg_params, mesh_lib.Replicas):
+        vgg_params = vgg_params.on(device)
     return {name: {k: v.to(device, dtype) for k, v in p.items()}
             for name, p in vgg_params.items()}
 
@@ -120,6 +124,14 @@ def lane_losses(cfg: GatysConfig, params, imgs: torch.Tensor, content_feats, tar
         s = sum(_lane_mean(torch.square(lane_gram(feats[l]) - style_grams[l]))
                 for l in cfg.style_layers)
         loss = loss + w_style * (s / len(cfg.style_layers))
+    return _pixel_terms(cfg, loss, imgs, normed, target_grads, depth_fn, target_depths)
+
+
+def _pixel_terms(cfg: GatysConfig, loss: torch.Tensor, imgs: torch.Tensor,
+                 normed: torch.Tensor, target_grads, depth_fn: Optional[DepthFn],
+                 target_depths: Optional[torch.Tensor]) -> torch.Tensor:
+    """``loss`` plus the terms taken on the whole image: total variation,
+    the edge term and the depth term."""
     if cfg.w_tv > 0:
         _, h, w, c = normed.shape
         tv = (_lane_sum(losses.abs_jax(normed[:, 1:] - normed[:, :-1]))
@@ -132,6 +144,59 @@ def lane_losses(cfg: GatysConfig, params, imgs: torch.Tensor, content_feats, tar
         d = torch.stack([normalize_depth(depth_fn(imgs[i:i + 1])) for i in range(imgs.shape[0])])
         loss = loss + cfg.w_depth * _lane_mean(torch.square(d - target_depths))
     return loss
+
+
+def sharded_features(cfg: GatysConfig, params, normed: torch.Tensor,
+                     sharding: mesh_lib.WidthSharding, layers: Sequence[str]):
+    """``{layer: [shard activations]}`` of the normalized batch ``normed``
+    cut by ``sharding``; ``params`` holds one tree a shard, on its device."""
+    return vgg19.extract_features_sharded(
+        params, sharding.scatter(normed, 2), layers,
+        torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32)
+
+
+def _columns(shards: Sequence[torch.Tensor]) -> int:
+    return sum(s.shape[2] for s in shards)
+
+
+def lane_losses_sharded(cfg: GatysConfig, params, imgs: torch.Tensor, content_feats,
+                        target_grads, style_grams: Dict[str, torch.Tensor], w_style,
+                        sharding: mesh_lib.WidthSharding,
+                        depth_fn: Optional[DepthFn] = None,
+                        target_depths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``lane_losses`` with the VGG-19 trunk over ``sharding`` (the sp
+    axis): ``imgs`` stays whole on the first card, each shard's columns
+    run on its own card (``params``: one tree a shard), and the sums over
+    the image come back to the first card in shard order. A style layer's
+    Gram is K1 on each shard with the whole image's norm, 1/(c·h·W), the
+    shards' Grams summed; the content term divides by the whole image's
+    count. ``content_feats`` holds each layer's shards (``sharded_features``
+    of the content); ``style_grams`` and the pixel terms live on the first
+    card."""
+    first = imgs.device
+    mean, std = _vgg_stats(first)
+    normed = losses.normalize(imgs, mean, std)
+    all_layers = tuple(dict.fromkeys(cfg.content_layers + cfg.style_layers))
+    feats = sharded_features(cfg, params, normed, sharding, all_layers)
+    loss = torch.zeros(imgs.shape[0], dtype=torch.float32, device=first)
+    if cfg.w_content > 0:
+        c = 0.0
+        for l in cfg.content_layers:
+            sq = mesh_lib.sum_on([_lane_sum(torch.square(f.float() - t.float()))
+                                  for f, t in zip(feats[l], content_feats[l])], first)
+            f0 = feats[l][0]
+            c = c + sq / (f0.shape[1] * _columns(feats[l]) * f0.shape[3])
+        loss = loss + cfg.w_content * (c / len(cfg.content_layers))
+    if cfg.w_style > 0:
+        s = 0.0
+        for l in cfg.style_layers:
+            b, h, _, ch = feats[l][0].shape
+            norm = 1.0 / (ch * h * _columns(feats[l]))
+            g = mesh_lib.sum_on([GramFunction.apply(f.reshape(b, h * f.shape[2], ch), norm)
+                                 for f in feats[l]], first)
+            s = s + _lane_mean(torch.square(g - style_grams[l]))
+        loss = loss + w_style * (s / len(cfg.style_layers))
+    return _pixel_terms(cfg, loss, imgs, normed, target_grads, depth_fn, target_depths)
 
 
 def _attend(content_feats, cfg: GatysConfig, given, device):

@@ -9,8 +9,14 @@ or an Adam step. A lane's loss is the mean over its own pixels, exactly the
 single-image objective; the B losses are summed before the backward, so
 each lane gets its own gradient.
 
-The JAX package shards the lanes over a device mesh (``parallel/mesh.py``);
-the port runs them on one GPU.
+Over a device mesh (``parallel.mesh``, ``run(mesh=...)``) the lanes split
+over the dp rows, unevenly where they must (a chunk runs its real frames
+only: a pad lane would be a whole run of VGG-19 on a copy), each row on a
+thread of its own with its own replica of VGG-19 and the style Grams. Within
+a row of several cards (sp) each lane's width is cut into shards
+(``gatys.lane_losses_sharded``): the pixels and the optimizer state stay
+whole on the row's first card, so every shard takes the same step and
+``lbfgs_lanes`` runs as on one card.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from tbist_tpu_torch.ops import losses
 from tbist_tpu_torch.ops.mip import normalize_depth
 from tbist_tpu_torch.optimize import gatys, lbfgs
 from tbist_tpu_torch.optimize.gatys import DepthFn
+from tbist_tpu_torch.parallel import mesh as mesh_lib
 from tbist_tpu_torch.utils.config import VGG_MEAN, VGG_STD, GatysConfig
 from tbist_tpu_torch.utils.imageio import resolve_device
 from tbist_tpu_torch.utils.precision import full_f32
@@ -52,20 +59,34 @@ def depth_targets(depth_fn: DepthFn, frames: torch.Tensor) -> torch.Tensor:
         return torch.stack([normalize_depth(depth_fn(f[None])) for f in frames])
 
 
+def shard_params(vgg_params, sharding: mesh_lib.WidthSharding, dtype: torch.dtype):
+    """One VGG-19 tree a shard, on the shard's device in ``dtype`` (a card
+    that holds several shards shares one copy)."""
+    return [gatys.params_on(vgg_params, d, dtype) for d in sharding.devices]
+
+
 def init_batch(cfg: GatysConfig, vgg_params, frames: torch.Tensor,
-               styles: Sequence[torch.Tensor], device="cuda"):
+               styles: Sequence[torch.Tensor], device="cuda",
+               sharding: Optional[mesh_lib.WidthSharding] = None):
     """Per-frame content targets and the shared style Grams (of one style,
     or of two styles' mixed features with ``cfg.style_img_weight``).
 
     frames: (B, H, W, 3) in [0, 1]; styles: (1, Hs, Ws, 3) each. Returns
-    (state, content_feats, target_grads, style_grams), all on ``device``."""
+    (state, content_feats, target_grads, style_grams), all on ``device``,
+    but that with ``sharding`` (first device ``device``) each content layer
+    is a list of its width shards on their devices."""
     device = resolve_device(device)
     dtype = _compute_dtype(cfg)
     params = gatys.params_on(vgg_params, device, dtype)
     frames = frames.to(device, torch.float32)
     with torch.no_grad(), full_f32():
         normed = losses.normalize(frames, VGG_MEAN, VGG_STD)
-        content_feats = vgg19.extract_features(params, normed, _all_layers(cfg), dtype)
+        if sharding is None:
+            content_feats = vgg19.extract_features(params, normed, _all_layers(cfg), dtype)
+        else:
+            content_feats = gatys.sharded_features(
+                cfg, shard_params(vgg_params, sharding, dtype), normed, sharding,
+                _all_layers(cfg))
         target_grads = losses.gradient_images(losses.to_grayscale(normed))
         style_feats = [
             vgg19.extract_features(params, losses.normalize(s.to(device, torch.float32),
@@ -98,21 +119,30 @@ def lbfgs_lanes(grads: torch.Tensor, states: Sequence[lbfgs.LBFGSState],
 def train_step(cfg: GatysConfig, vgg_params, state: BatchState, content_feats, target_grads,
                style_grams, w_style: Optional[torch.Tensor] = None,
                depth_fn: Optional[DepthFn] = None,
-               target_depths: Optional[torch.Tensor] = None) -> Tuple[BatchState, torch.Tensor]:
+               target_depths: Optional[torch.Tensor] = None,
+               sharding: Optional[mesh_lib.WidthSharding] = None,
+               ) -> Tuple[BatchState, torch.Tensor]:
     """One optimizer step for every lane. Returns (state, (B,) losses).
 
     ``w_style`` gives each lane its own style weight ((B,) tensor); None
     uses ``cfg.w_style`` for all. ``depth_fn`` with ``target_depths`` (from
-    ``depth_targets``) adds the depth term when ``cfg.w_depth > 0``."""
+    ``depth_targets``) adds the depth term when ``cfg.w_depth > 0``.
+    ``sharding``: the lanes' widths cut over cards, as ``init_batch`` made
+    ``content_feats``; ``vgg_params`` is then ``shard_params``' list."""
     imgs = state.images.clamp(0.0, 1.0).requires_grad_(True)
-    params = gatys.params_on(vgg_params, imgs.device, _compute_dtype(cfg))
+    dtype = _compute_dtype(cfg)
     if w_style is None:
         w_style = torch.full((imgs.shape[0],), cfg.w_style, device=imgs.device)
     if depth_fn is None or cfg.w_depth <= 0:
         target_depths = None
     with full_f32():
-        values = gatys.lane_losses(cfg, params, imgs, content_feats, target_grads, style_grams,
-                                   w_style, depth_fn, target_depths)
+        if sharding is None:
+            values = gatys.lane_losses(cfg, gatys.params_on(vgg_params, imgs.device, dtype),
+                                       imgs, content_feats, target_grads, style_grams,
+                                       w_style, depth_fn, target_depths)
+        else:
+            values = gatys.lane_losses_sharded(cfg, vgg_params, imgs, content_feats, target_grads, style_grams,
+                                               w_style, sharding, depth_fn, target_depths)
         (grads,) = torch.autograd.grad(values.sum(), imgs)
         imgs = imgs.detach()
         if cfg.optimizer == "lbfgs":
@@ -127,27 +157,62 @@ def train_step(cfg: GatysConfig, vgg_params, state: BatchState, content_feats, t
 
 def run(cfg: GatysConfig, vgg_params, frames: torch.Tensor, styles: Sequence[torch.Tensor],
         w_style=None, return_history: bool = False, depth_fn: Optional[DepthFn] = None,
-        device="cuda"):
+        device="cuda", mesh: Optional[mesh_lib.Mesh] = None):
     """``init_batch`` + ``cfg.num_steps`` train steps + clamp -> (B, H, W, 3).
 
     ``w_style`` optionally gives each lane its own style weight (MIP's
     per-layer strengths); ``return_history`` also returns the (num_steps, B)
     losses, kept on the device until the caller reads them; ``depth_fn``
     adds the depth term against each frame's own target when
-    ``cfg.w_depth > 0``."""
+    ``cfg.w_depth > 0`` (with a mesh it must run on each card's frames:
+    ``mesh.Replicated``). ``mesh``: the lanes split over its dp rows and
+    their widths over each row's cards (sp, ``mesh.VGG_ALIGN`` columns a
+    block); the results come back to ``device``, in lane order."""
     device = resolve_device(device)
-    params = gatys.params_on(vgg_params, device, _compute_dtype(cfg))
+    if mesh is None:
+        return _run_lanes(cfg, vgg_params, frames, styles, w_style, return_history, depth_fn,
+                          device, None)
+    vgg_params = mesh_lib.replicas_of(vgg_params)  # one copy a card, kept
+    if w_style is not None:
+        w_style = torch.as_tensor(w_style, dtype=torch.float32)
+    parts = mesh_lib.split_lanes(frames.shape[0], mesh.shape[mesh_lib.DP_AXIS])
+
+    def lanes(r, first):
+        a, b = parts[r]
+        sharding = mesh_lib.width_sharding(frames.shape[2], mesh.devices[r], mesh_lib.VGG_ALIGN)
+        return _run_lanes(cfg, vgg_params, frames[a:b], styles,
+                          None if w_style is None else w_style[a:b], return_history, depth_fn,
+                          first, sharding)
+
+    outs = mesh_lib.on_devices(lanes, [mesh.devices[r][0] for r in range(len(parts))])
+    if not return_history:
+        return torch.cat([o.to(device) for o in outs])
+    return (torch.cat([o.to(device) for o, _ in outs]),
+            torch.cat([h.to(device) for _, h in outs], dim=1))
+
+
+def _run_lanes(cfg: GatysConfig, vgg_params, frames: torch.Tensor,
+               styles: Sequence[torch.Tensor], w_style, return_history: bool,
+               depth_fn: Optional[DepthFn], device: torch.device,
+               sharding: Optional[mesh_lib.WidthSharding]):
+    """``run``'s loop for the lanes of one card (or of one sp row, whose
+    first card is ``device``); with a mesh ``vgg_params`` is ``run``'s
+    ``mesh.Replicas``."""
+    params = vgg_params if sharding is not None else gatys.params_on(
+        vgg_params, device, _compute_dtype(cfg))
     state, content_feats, target_grads, style_grams = init_batch(cfg, params, frames, styles,
-                                                                  device)
+                                                                  device, sharding)
     if w_style is not None:
         w_style = torch.as_tensor(w_style, dtype=torch.float32).to(device)
     tdepths = None
     if depth_fn is not None and cfg.w_depth > 0:
         tdepths = depth_targets(depth_fn, state.images)
+    if sharding is not None:
+        params = shard_params(params, sharding, _compute_dtype(cfg))
     hist = torch.zeros((cfg.num_steps, frames.shape[0]), device=device) if return_history else None
     for i in range(cfg.num_steps):
         state, values = train_step(cfg, params, state, content_feats, target_grads,
-                                   style_grams, w_style, depth_fn, tdepths)
+                                   style_grams, w_style, depth_fn, tdepths, sharding)
         if hist is not None:
             hist[i] = values
     out = state.images.clamp(0.0, 1.0)

@@ -1,10 +1,13 @@
 """HTTP serving layer of the port (counterpart of ``tbist_tpu.serve``):
-a stdlib-only JSON API over the effect pipeline on one torch device.
+a stdlib-only JSON API over the effect pipeline on one torch device (on a
+host with two or more cards, a request shards over all of them where the
+JAX package shards: ``parallel.mesh``).
 
   GET  /healthz            -> {"status": "ok", "backend": "cuda" | "cpu",
                               "devices": N, "batching": {counters}} (when
                               batching is on), "warmup_s": {key: s} (with
-                              --warmup-size)
+                              --warmup-size), "mesh": the cards a request
+                              shards over (on two or more cards)
   POST /v1/image           -> body {"image": b64, "request": {...},
                               "style_image": b64?, "style_image1": b64?,
                               "style_image2": b64?, "color_palette_image": b64?,
@@ -24,7 +27,8 @@ Every device call, in a request thread or in the micro-batcher's worker,
 runs under one lock: one request's work on the card at a time, on the
 default stream that all threads share (grad mode is per thread, so a Gatys
 request beside the batcher's no-grad calls keeps its own). Concurrent
-fast-text-only requests coalesce into one batched call when
+fast-text-only requests coalesce into one batched call (split over the
+cards' dp mesh where there are several) when
 ``--batch-max`` > 0 (default 8; ``tbist_tpu_torch.api.batching``). A video
 request holds the lock for its whole duration and buffers its mp4 in
 memory, so bodies over ``--max-body-mb`` (default 64) are refused with 413
@@ -43,6 +47,7 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+from tbist_tpu_torch.parallel import mesh as mesh_lib
 from tbist_tpu_torch.utils.logging import RunMetrics, logger
 
 
@@ -85,6 +90,9 @@ class _Handler(BaseHTTPRequestHandler):
                 "backend": device.type,
                 "devices": torch.cuda.device_count() if device.type == "cuda" else 1,
             }
+            mesh = mesh_lib.production_mesh(device)
+            if mesh is not None:
+                reply["mesh"] = mesh.size
             batcher = getattr(self.server, "batcher", None)
             if batcher is not None:
                 reply["batching"] = {

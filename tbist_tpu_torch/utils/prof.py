@@ -114,6 +114,39 @@ def trace(out_path: Optional[str] = None):
         p.export_chrome_trace(out_path)
 
 
+def _busy(spans):
+    """(busy us, window us) of kernel spans: the union of the spans, and the
+    window from the first start to the last end."""
+    spans = sorted(spans)
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    return busy, spans[-1][1] - spans[0][0]
+
+
+def busy_by_device(p, match: str = "") -> Dict[int, Dict]:
+    """Per card (``device_index``): its kernels' busy share of the window
+    over all cards' kernels, and the count of kernels whose name holds
+    ``match``."""
+    kernels = [e for e in p.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return {}
+    _, window = _busy([(e.time_range.start, e.time_range.end) for e in kernels])
+    out = {}
+    for d in sorted({e.device_index for e in kernels}):
+        mine = [e for e in kernels if e.device_index == d]
+        busy, _ = _busy([(e.time_range.start, e.time_range.end) for e in mine])
+        out[d] = {"busy_share": busy / window if window else None,
+                  "kernels": len(mine),
+                  "matching": sum(match in e.name for e in mine) if match else None}
+    return out
+
+
 def device_breakdown(p) -> Dict:
     """GPU kernel time by kind (ms), and the busy share of the window from
     the first kernel's start to the last kernel's end."""
@@ -128,16 +161,7 @@ def device_breakdown(p) -> Dict:
         by_kind[kind_of(e.name)] = by_kind.get(kind_of(e.name), 0.0) + us
         by_name[e.name[:90]] = by_name.get(e.name[:90], 0.0) + us
         spans.append((e.time_range.start, e.time_range.end))
-    spans.sort()
-    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
-    window = spans[-1][1] - spans[0][0]
+    busy, window = _busy(spans)
     blocking, blocking_ms, copies = {}, {}, {}
     for e in p.events():
         if e.device_type == torch.autograd.DeviceType.CPU and e.name in _BLOCKING:

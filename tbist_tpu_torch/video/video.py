@@ -18,14 +18,16 @@ chunk, K4). Chains of per-image device stages (grayscale, pixel art, colour
 palette) send a chunk through one ``apply_image`` call; the rest run frame
 by frame.
 
-One GPU: the JAX package shards a chunk's frames over the ``dp`` axis of a
-device mesh (``tbist_tpu/parallel/mesh.py``) and pads every chunk to one
-compiled shape by repeating its last frame. The port has no mesh module: a
-chunk is one batch on one card, the ``sp`` axis (a wide image split over
-devices) has no counterpart, and multi-GPU is out of scope. A chunk runs its
-real frames only: the eager port compiles nothing, and in a Gatys lane a pad
-frame would be 400 L-BFGS steps of VGG-19 spent on a copy. Lanes are
-independent, so no real frame's output depends on the pad.
+On two or more cards every lane splits a chunk's frames over the dp
+production mesh (``parallel.mesh``), as the JAX package does: the chunk is
+at least one frame a card (``_chunk_size``), each card runs its frames with
+its own replica of the models (Ghiasi; DINO and SAM, so K4 runs on each
+card; VGG-19 through ``parallel.batched``), and the results come back to the
+first card in frame order for the dissolve and the ordered read-back. The
+JAX package pads every chunk to one compiled shape by repeating its last
+frame; a chunk here runs its real frames only, split unevenly where it must:
+the eager port compiles nothing, and in a Gatys lane a pad frame would be
+400 L-BFGS steps of VGG-19 spent on a copy.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ import torch
 
 from tbist_tpu_torch.compose import pipeline as pipe
 from tbist_tpu_torch.ops import masks as mask_ops
+from tbist_tpu_torch.parallel import mesh as mesh_lib
 from tbist_tpu_torch.utils.config import EffectRequest
 from tbist_tpu_torch.utils.imageio import (
     bucket_shape,
@@ -428,10 +431,33 @@ def _is_batchable_chain(req: EffectRequest) -> bool:
     )
 
 
-def _chunk_size(frame_batch: int) -> int:
-    """Frames a chunk: ``frame_batch``, at least one. (The JAX package rounds
-    it up to a multiple of the mesh's dp axis; one card has no such axis.)"""
-    return max(frame_batch, 1)
+def _chunk_size(frame_batch: int, dp: int = 1) -> int:
+    """Frames a chunk: ``frame_batch``, at least one a dp card, rounded up to
+    a multiple of dp (``tbist_tpu/video/video.py:678-684``)."""
+    bsz = max(frame_batch, dp)
+    return -(-bsz // dp) * dp
+
+
+def _lane_cards(device) -> List[torch.device]:
+    """The cards a lane splits its chunks over: the dp production mesh's,
+    or ``device`` alone."""
+    mesh = mesh_lib.production_mesh(device, dp_only=True)
+    if mesh is None:
+        return [device]
+    logger.info("video: frames split over dp=%d cards", mesh.shape[mesh_lib.DP_AXIS])
+    return [row[0] for row in mesh.devices]
+
+
+def _split(x: torch.Tensor, cards: List[torch.device]) -> List[Tuple[torch.Tensor, torch.device]]:
+    """A chunk's frames cut over ``cards`` (unevenly where they must), each
+    part on its card."""
+    return [(x[a:b].to(d, non_blocking=True), d)
+            for (a, b), d in zip(mesh_lib.split_lanes(x.shape[0], len(cards)), cards)]
+
+
+def _gather(parts: List[torch.Tensor], device) -> torch.Tensor:
+    """The parts' frames on ``device``, in order."""
+    return torch.cat([p.to(device, non_blocking=True) for p in parts])
 
 
 def _iter_chunks(stack: np.ndarray, bsz: int):
@@ -510,11 +536,18 @@ def _batched_text_transfer(frames: Optional[List[np.ndarray]], req: EffectReques
     registry = registry or pipe.ModelRegistry(device=device)
     g_params, style = _style_vector(registry, req.text.style_prompt, device)
     cd = tt.compute_dtype()  # TBIST_GHIASI_BF16: bf16 activations unless "0"
+    cards = _lane_cards(device)
+    g_reps = mesh_lib.replicas_of(g_params)  # one copy a card, kept
     if chunk_iter is None:
-        chunk_iter = _iter_chunks(np.stack(frames), _chunk_size(req.video.frame_batch))
+        chunk_iter = _iter_chunks(np.stack(frames), _chunk_size(req.video.frame_batch,
+                                                                len(cards)))
 
     def process(i, raw):
-        return _text_fwd_u8(g_params, upload(raw, device), style, cd, bgr)
+        x = upload(raw, device)
+        if len(cards) == 1:
+            return _text_fwd_u8(g_params, x, style, cd, bgr)
+        return _gather([_text_fwd_u8(g_reps.on(d), part, style.to(d), cd, bgr)
+                        for part, d in _split(x, cards)], device)
 
     return _run_lane(chunk_iter, sink, dissolve_k, process)
 
@@ -562,24 +595,34 @@ def _batched_masked_text(req: EffectRequest, registry: Optional[pipe.ModelRegist
         emoji = upload(registry.ensure("emoji_extractor").emoji_extractor(tcfg.texture_prompt),
                        device)
     blur, step = int(tcfg.emoji_blur_strength), float(tcfg.emoji_step_size)
-    shared_m = None
+    cards = _lane_cards(device)
+    g_reps = mesh_lib.replicas_of(g_params)
+    shared = {}  # card -> the frame-independent stencil mask (texture, no location)
 
-    def process(i, raw):
-        nonlocal shared_m
-        chunk = upload(raw, device)
-        styled = _text_fwd_f32(g_params, chunk, style, cd)
+    def on_card(chunk, d):
+        styled = _text_fwd_f32(g_reps.on(d), chunk, style.to(d), cd)
         if has_l:
             masks = upload(extract(chunk, tcfg.location_prompt,
-                                   **masking_fx._detection_kwargs(tcfg)), device)
+                                   **masking_fx._detection_kwargs(tcfg)), d)
             if has_x:
-                return _composite_emoji_u8(chunk, styled, masks, emoji, blur, step,
+                return _composite_emoji_u8(chunk, styled, masks, emoji.to(d), blur, step,
                                            tcfg.emoji_style_strength)
             return _composite_loc_u8(chunk, styled, masks, int(tcfg.edge_smoothing))
-        if shared_m is None:
+        return _composite_shared_u8(chunk, styled, shared[d])
+
+    def process(i, raw):
+        chunk = upload(raw, device)
+        if not has_l and not shared:
             merged = mask_ops.merge_content_style_masks(
                 torch.ones(chunk.shape[1:3], dtype=torch.bool, device=device), emoji, blur, step)
-            shared_m = torch.clamp(merged * tcfg.emoji_style_strength, 0.0, 1.0)[None, ..., None]
-        return _composite_shared_u8(chunk, styled, shared_m)
+            m = torch.clamp(merged * tcfg.emoji_style_strength, 0.0, 1.0)[None, ..., None]
+            shared.update({d: m.to(d) for d in cards})
+        if len(cards) == 1:
+            return on_card(chunk, device)
+        # a thread a card: the extractor waits on its own card's DINO logits
+        parts = _split(chunk, cards)
+        return _gather(mesh_lib.on_devices(lambda j, d: on_card(parts[j][0], d),
+                                           [d for _, d in parts]), device)
 
     return _run_lane(chunk_iter, sink, dissolve_k, process)
 
@@ -613,8 +656,12 @@ def _batched_style(frames: Optional[List[np.ndarray]], req: EffectRequest,
         cfg = dataclasses.replace(cfg, w_depth=req.depth.w_depth)
         depth_fn = registry.ensure("depth_estimator").depth_estimator
 
+    mesh = mesh_lib.production_mesh(device, dp_only=True)
+    if mesh is not None:
+        logger.info("video: frames split over dp=%d cards", mesh.shape[mesh_lib.DP_AXIS])
     if chunk_iter is None:
-        chunk_iter = _iter_chunks(np.stack(frames), _chunk_size(req.video.frame_batch))
+        chunk_iter = _iter_chunks(np.stack(frames), _chunk_size(
+            req.video.frame_batch, 1 if mesh is None else mesh.shape[mesh_lib.DP_AXIS]))
     chunk_iter = iter(chunk_iter)
     first = next(chunk_iter, None)
     if first is None:
@@ -634,7 +681,8 @@ def _batched_style(frames: Optional[List[np.ndarray]], req: EffectRequest,
         x = upload(raw, device).float() / 255.0
         if (bh, bw) != (h, w):
             x = image_resize_bilinear(x, (bh, bw))
-        res = batched.run(cfg, vgg_params, x, styles, depth_fn=depth_fn, device=device)
+        res = batched.run(cfg, vgg_params, x, styles, depth_fn=depth_fn, device=device,
+                          mesh=mesh)
         if (bh, bw) != (h, w):
             res = image_resize_bilinear(res, (h, w))
         return to_uint8_device(res)
@@ -684,7 +732,8 @@ def apply_video(video_path: Optional[str], req: EffectRequest,
         out_path = os.path.join(tempfile.mkdtemp(), "output_video.mp4")
 
     # the text lane stays in cv2's native BGR end to end (flipped on the card)
-    bsz = _chunk_size(vcfg.frame_batch)
+    mesh = mesh_lib.production_mesh(device, dp_only=True)
+    bsz = _chunk_size(vcfg.frame_batch, 1 if mesh is None else mesh.shape[mesh_lib.DP_AXIS])
     chunks = _Prefetch(read_frame_chunks(video_path, bsz, max_frames, rgb=not pure_text))
     first = next(chunks, None)
     if first is None:

@@ -28,6 +28,8 @@ from typing import Callable, Dict, Mapping
 import numpy as np
 import torch
 
+from tbist_tpu_torch.parallel import mesh as mesh_lib
+
 from tbist_tpu_torch.models import depth_anything as da
 from tbist_tpu_torch.utils.imageio import resolve_device, tree_to
 from tbist_tpu_torch.utils.logging import logger
@@ -146,7 +148,9 @@ def get_depth_estimator(device="cuda") -> Callable:
     """The (B, H, W, 3) -> (H, W) depth callable on ``device`` from the
     checkpoint at ``TBIST_DEPTH_PTH`` or
     ``weights_cache/depth_anything_v2_small.pth``; raises
-    ``FileNotFoundError`` when there is none. A missing card raises too."""
+    ``FileNotFoundError`` when there is none. A missing card raises too.
+    An image on another card runs there, on a replica of the weights made
+    the first time (the depth lanes of a dp mesh)."""
     device = resolve_device(device)
     path = os.environ.get("TBIST_DEPTH_PTH",
                           os.path.join(_CACHE_DIR, "depth_anything_v2_small.pth"))
@@ -155,4 +159,8 @@ def get_depth_estimator(device="cuda") -> Callable:
     sd = torch.load(path, map_location="cpu", weights_only=True)
     params = tree_to(convert_hf_state_dict(sd), device)
     logger.info("Depth-Anything: converted checkpoint from %s", path)
-    return functools.partial(da.predict_depth, params, da.SMALL)
+    return mesh_lib.Replicated(_predict_small, params)
+
+
+def _predict_small(params, image: torch.Tensor) -> torch.Tensor:
+    return da.predict_depth(params, da.SMALL, image)

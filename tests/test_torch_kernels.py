@@ -335,9 +335,11 @@ def test_wrappers_reject_unsupported_devices():
 
 
 @pytest.fixture
-def cuda():
+def cuda(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    # one card: on a host with several, the mesh would shard these runs
+    monkeypatch.setenv("TBIST_DISABLE_MESH", "1")
     return torch.device("cuda")
 
 

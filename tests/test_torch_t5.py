@@ -194,9 +194,11 @@ def test_emoji_extractor_raises_without_files_and_masking_falls_back(monkeypatch
 
 
 @pytest.fixture
-def cuda():
+def cuda(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    # one card: on a host with several, the mesh would shard these runs
+    monkeypatch.setenv("TBIST_DISABLE_MESH", "1")
     return torch.device("cuda")
 
 
