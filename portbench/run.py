@@ -1,0 +1,301 @@
+"""The port's benchmark: one run of one cell.
+
+    python3 portbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
+
+A run is a fresh process: set-up (imports, the card, the kernels that
+``nvcc`` built under ``build/``, the seeded weights on the device, the
+images, one warm-up request of a few steps at the cell's shapes), then a
+window of whole requests through ``tbist_tpu_torch.api.apply_image``
+(``generators/``), then the check of every window request against the plain
+reference (``check.py``). The last line of standard output is one JSON
+object: ``correct``, ``attempted``, ``failed``, ``metrics``, ``device``
+(and ``breakdown`` with ``--trace 1``), and last ``checks``, each compared
+number with its limit, which also end standard error.
+
+Everything is found by name: the cell in ``workloads/<cell>.json``, its
+configuration in ``configs/<config>.json``, its traffic generator in
+``generators/<generator>.py``, and each metric that ``BENCHMARK.json`` gives the
+cell in ``metrics/<metric>.py``. ``--trace 0`` reports the end-to-end
+metrics, ``--trace 1`` the per-layer ones, read from a profiled slice of
+whole steps in the first window request.
+"""
+
+from __future__ import annotations
+
+import time
+
+T_START = time.perf_counter()
+
+import argparse  # noqa: E402
+import importlib.util  # noqa: E402
+import json  # noqa: E402
+import os  # noqa: E402
+import sys  # noqa: E402
+import types  # noqa: E402
+from typing import Dict, List, Optional, Tuple  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+HERE = os.path.join(ROOT, "portbench")
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+FORBIDDEN = ("jax", "jaxlib", "flax", "tbist_tpu")  # top-level module names
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--workload", required=True)
+    p.add_argument("--seed", type=int, required=True)
+    p.add_argument("--seconds", type=float, required=True)
+    p.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    return p.parse_args(argv)
+
+
+def load(kind: str, name: str) -> Dict:
+    """``portbench/<kind>/<name>.json``."""
+    with open(os.path.join(HERE, kind, f"{name}.json")) as f:
+        return json.load(f)
+
+
+def module(kind: str, name: str) -> types.ModuleType:
+    """``portbench/<kind>/<name>.py``, loaded by path (names may hold dots)."""
+    path = os.path.join(HERE, kind, f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"portbench_{kind}_{name.replace('.', '_')}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def cell_metrics(cell: str, trace: bool) -> List[Dict]:
+    """The metrics ``BENCHMARK.json`` gives ``cell``: the end-to-end ones,
+    or with ``trace`` the per-layer ones."""
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
+        bench = json.load(f)
+    return [m for m in bench["per_layer" if trace else "end_to_end"]
+            if cell in m.get("workloads", [cell])]
+
+
+def forbidden_modules() -> List[str]:
+    return sorted({m.split(".")[0] for m in list(sys.modules)} & set(FORBIDDEN))
+
+
+def set_environment(chips: int) -> None:
+    """Caches at fixed paths inside the checkout, the cell's cards only, and
+    no JAX pulled in by a library. Before torch is imported."""
+    build = os.path.join(ROOT, "build", "portbench")
+    for key, sub in (("TRITON_CACHE_DIR", "triton"), ("TORCH_EXTENSIONS_DIR", "torch_extensions"),
+                     ("CUDA_CACHE_PATH", "cuda_cache")):
+        os.environ[key] = os.path.join(build, sub)
+    os.environ["USE_FLAX"] = "0"
+    os.environ["USE_JAX"] = "0"
+    os.environ["TBIST_SEED_CACHE"] = "0"
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if visible:
+        os.environ["CUDA_VISIBLE_DEVICES"] = ",".join(visible.split(",")[:chips])
+    else:
+        os.environ["CUDA_VISIBLE_DEVICES"] = ",".join(str(i) for i in range(chips))
+
+
+def sub_seeds(seed: int) -> List[int]:
+    """Seeds of the VGG-19 draw, the Depth Anything draw and the traffic."""
+    import numpy as np
+
+    return [int(s) for s in np.random.SeedSequence(seed % 2 ** 64).generate_state(3, np.uint64)]
+
+
+def build_request(config: Dict, steps: int):
+    from tbist_tpu_torch.api import DepthConfig, EffectRequest, GatysConfig
+
+    g = dict(config["gatys"])
+    g.update(num_steps=steps, content_layers=tuple(g["content_layers"]),
+             style_layers=tuple(g["style_layers"]))
+    req = config["request"]
+    depth = DepthConfig(**req["depth"]) if req.get("depth") else None
+    return EffectRequest(style_transfer=bool(req.get("style_transfer")), depth=depth,
+                         gatys=GatysConfig(**g))
+
+
+def depth_estimator(params, da: Dict):
+    """The depth model the registry takes, under a range the trace reads."""
+    import torch
+
+    from tbist_tpu_torch.models import depth_anything
+
+    cfg = depth_anything.DAConfig(**{k: tuple(v) if isinstance(v, list) else v
+                                     for k, v in da.items()})
+
+    def estimate(image):
+        with torch.profiler.record_function("portbench.depth_fwd"):
+            return depth_anything.predict_depth(params, cfg, image)
+
+    return estimate
+
+
+def to_tensor(img, device):
+    """The (1, H, W, 3) float image the port makes of a PIL image."""
+    import numpy as np
+    import torch
+
+    arr = np.asarray(img).astype(np.float32) / 255.0
+    return torch.from_numpy(arr)[None].to(device)
+
+
+def execute(argv: Optional[List[str]] = None, device: Optional[str] = None,
+            overrides: Optional[Dict] = None,
+            keep: Optional[Dict] = None) -> Tuple[int, Optional[Dict], List[str]]:
+    """One run: (exit code, the result line's object or None, the lines
+    for standard error). ``device`` and ``overrides`` (``{"config": {...},
+    "params": {...}}`` merged into the files') are for the CPU tests and
+    ``control.py``, which drive a run without a card or several runs in
+    one process; ``keep`` receives the window's requests (``records``) and
+    every number the check worked out (``numbers``)."""
+    args = parse_args(argv)
+    work = load("workloads", args.workload)
+    config = load("configs", work["config"])
+    params = dict(work["params"])
+    if overrides:
+        config = {**config, **overrides.get("config", {})}
+        params.update(overrides.get("params", {}))
+    chips = work["chips"]
+    on_card = device is None
+    if on_card:
+        set_environment(chips)
+    import torch
+
+    if on_card:
+        if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
+            print(f"portbench: the cell needs {chips} CUDA card(s); "
+                  f"{torch.cuda.device_count() if torch.cuda.is_available() else 0} visible",
+                  file=sys.stderr)
+            return 2, None, []
+        device = "cuda"
+    cards = chips if on_card else 1
+
+    from portbench import check, hooks, tracing, weights
+    from portbench.reference import gatys as ref
+    from portbench.work import peaks as peaks_lib
+    from tbist_tpu_torch import api
+
+    dev = torch.device(device)
+    seed_vgg, seed_da, seed_traffic = sub_seeds(args.seed)
+    vgg = weights.vgg19(seed_vgg, dev)
+    da, da_params, estimator = config.get("depth_anything"), None, None
+    if da:
+        da_params = weights.depth_anything(da, seed_da, dev)
+        estimator = depth_estimator(da_params, da)
+    registry = api.ModelRegistry(device=dev, vgg_params=vgg, depth_estimator=estimator)
+    timing_key = params["timing_key"]
+
+    def send(content, style, steps):
+        m = api.RunMetrics()
+        out = api.apply_image(content, build_request(config, steps), style_image=style,
+                              registry=registry, metrics=m, device=dev)
+        return out, {"program_s": m.timings_s.get(timing_key), "hist": list(m.loss_history)}
+
+    def sync():
+        if on_card:
+            for d in range(cards):
+                torch.cuda.synchronize(d)
+
+    trace = bool(args.trace)
+    sliced = tracing.Slice(cards) if trace else None
+    if trace and on_card:
+        tracing.Slice.warm()
+    reader = hooks.Reader(params["steps"], tuple(params["trace_steps"]) if trace else None,
+                          sliced.toggle if trace else None, params["check_steps"])
+    generator = module("generators", work["generator"])
+    with hooks.installed(reader):
+        if on_card:
+            for d in range(cards):
+                torch.cuda.reset_peak_memory_stats(d)
+        result = generator.run(params, seed_traffic, args.seconds, ROOT, send, reader, sync,
+                               trace)
+    sync()
+    setup_s = result["setup_end"] - T_START
+    peak = max((torch.cuda.max_memory_allocated(d) for d in range(cards)), default=0) \
+        if on_card else 0
+    records = result["records"]
+    if keep is not None:
+        keep["records"] = records
+    failed = sum(r["error"] is not None or r["out"] is None for r in records)
+    bypassed = sorted({p for r in records if r["error"] is None and r["out"] is not None
+                       for p in r["captures"]["problems"]})
+    if bypassed:
+        print("portbench: reading points bypassed, the check cannot run (hooks.py): "
+              + "; ".join(bypassed), file=sys.stderr)
+        return 4, None, []
+
+    name = torch.cuda.get_device_name(0) if on_card else "cpu"
+    peaks = peaks_lib.peaks_for(name)
+    ctx = types.SimpleNamespace(
+        setup_s=setup_s, window_s=result["window_s"], records=records,
+        completed=len(records) - failed, cards=cards, config=config, params=params,
+        peaks=peaks, trace=sliced.reduce(params["trace_steps"][1] - params["trace_steps"][0])
+        if trace else None)
+    metrics, lines = {}, []
+    for m in cell_metrics(args.workload, trace):
+        value = module("metrics", m["name"]).read(ctx)
+        if value is not None:
+            metrics[m["name"]] = {"value": value, "unit": m["unit"]}
+    if on_card:
+        lines.append(f"card: {peaks_lib.smi()}; peaks used: {peaks['float32']:.4g} FLOP/s f32, "
+                     f"{peaks['bytes']:.4g} B/s (published at {peaks['rated_w']:.0f} W)")
+    dev_info = {"platform": "gpu" if on_card else "cpu", "kind": name, "count": cards,
+                "memory_peak_bytes": int(peak)}
+    out = {"correct": False, "attempted": len(records), "failed": failed, "metrics": metrics,
+           "device": dev_info}
+    if trace and ctx.trace is not None:
+        b = tracing.busy(ctx.trace)
+        dev_info["busy_s"] = b["mean_busy_us"] / 1e6
+        dev_info["window_s"] = b["window_us"] / 1e6
+        for d, us in b["per_card_us"].items():
+            lines.append(f"card {d}: busy {us / 1e6:.6f} s of the traced "
+                         f"{b['window_us'] / 1e6:.6f} s ({ctx.trace.steps} steps)")
+        out["breakdown"] = {
+            "device_ops": [[n, us / 1e6] for n, us in tracing.top_ops(ctx.trace)],
+            "idle_gaps": [[n, us / 1e6] for n, us in tracing.idle_gaps(ctx.trace)[:10]]}
+
+    # the check, once the window has closed and the peak has been read
+    del registry
+    rows = []
+    ref_cfg = dict(config["gatys"],
+                   w_depth=(config["request"].get("depth") or {}).get("w_depth", 0.0))
+    with ref.precision(tf32=False):
+        for r in records:
+            if r["out"] is None or r["error"] is not None:
+                continue
+            c, s = (to_tensor(im, dev) for im in r["pair_images"])
+            obj = ref.objective(ref_cfg, vgg, c, s, da_params, da)
+            cap = dict(r["captures"], hist=r["timings"]["hist"])
+            rows.append(check.request_numbers(obj, c, cap, r["out"],
+                                              config["gatys"]["learning_rate"],
+                                              config["gatys"]["lbfgs_memory"]))
+    numbers = check.worst(rows)
+    if keep is not None:
+        keep["numbers"] = numbers
+    limits = work["limits"]
+    out["correct"] = bool(failed == 0 and len(rows) == len(records)
+                          and check.judge(numbers, limits))
+    out["checks"] = {k: {"value": numbers.get(k), "limit": limits[k]} for k in limits}
+    lines += [f"check {k}: {numbers.get(k)} (limit {limits[k]})" for k in limits]
+    lines = [f"not judged {k}: {v}" for k, v in numbers.items() if k not in limits] + lines
+    bad = forbidden_modules()  # what the run loaded, the window and the check included
+    if bad:
+        print(f"portbench: the run loaded {bad}", file=sys.stderr)
+        return 3, None, []
+    return 0, out, lines
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    rc, out, lines = execute(argv)
+    if out is not None:
+        print(json.dumps(out), flush=True)
+    for line in lines:
+        print(line, file=sys.stderr)
+    sys.stderr.flush()
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())
