@@ -1,0 +1,9 @@
+"""idle_bwd_ms_per_step.gatys: milliseconds a step that the card sits idle while the
+host is in the step's backward (``tbist.step.backward``: autograd), the mean
+over the traced steps (program span over device trace)."""
+
+from portbench import program_spans
+
+
+def read(ctx):
+    return program_spans.read(ctx, "bwd")

@@ -25,7 +25,7 @@ from tbist_tpu_torch.ops import masks as mask_ops
 from tbist_tpu_torch.utils import degraded
 from tbist_tpu_torch.utils.config import EffectRequest, TextEffectConfig
 from tbist_tpu_torch.utils.imageio import upload
-from tbist_tpu_torch.utils.logging import RunMetrics
+from tbist_tpu_torch.utils.logging import RunMetrics, span
 
 
 @dataclasses.dataclass
@@ -216,46 +216,50 @@ def _apply_stages(
     # ---- 2. text effects (app.py:161-282) ----
     tcfg = req.text
     if state.mode != "none":
-        if tcfg.location_prompt:
-            from tbist_tpu_torch.effects import masking
+        with span("stage.text"):
+            if tcfg.location_prompt:
+                from tbist_tpu_torch.effects import masking
 
-            state.loc_mask = masking.extract_location_mask(registry.mask_extractor, original,
-                                                           tcfg)
-        if tcfg.texture_prompt:
-            state.emoji_mask = upload(registry.emoji_extractor(tcfg.texture_prompt),
-                                      original.device)
-        if state.mode == "transfer":
-            styled = registry.text_transfer(original, tcfg.style_prompt)
+                state.loc_mask = masking.extract_location_mask(registry.mask_extractor,
+                                                               original, tcfg)
             if tcfg.texture_prompt:
-                output = _texture_composite(original, styled, state, tcfg.emoji_blur_strength,
-                                            tcfg.emoji_step_size, tcfg.emoji_style_strength)
-            elif tcfg.location_prompt:
-                output = mask_ops.composite_by_mask(original, styled, state.loc_mask,
-                                                    int(tcfg.edge_smoothing))
-            else:
-                output = styled
-        elif state.mode == "location":
-            output = _visualize(state.loc_mask)
-        elif state.mode == "texture":
-            output = _visualize(state.emoji_mask)
-        else:  # location+texture: the merged mask (app.py:265-282)
-            output = _visualize(mask_ops.merge_content_style_masks(
-                state.loc_mask, state.emoji_mask, tcfg.emoji_blur_strength,
-                tcfg.emoji_step_size))
+                state.emoji_mask = upload(registry.emoji_extractor(tcfg.texture_prompt),
+                                          original.device)
+            if state.mode == "transfer":
+                styled = registry.text_transfer(original, tcfg.style_prompt)
+                if tcfg.texture_prompt:
+                    output = _texture_composite(original, styled, state,
+                                                tcfg.emoji_blur_strength, tcfg.emoji_step_size,
+                                                tcfg.emoji_style_strength)
+                elif tcfg.location_prompt:
+                    output = mask_ops.composite_by_mask(original, styled, state.loc_mask,
+                                                        int(tcfg.edge_smoothing))
+                else:
+                    output = styled
+            elif state.mode == "location":
+                output = _visualize(state.loc_mask)
+            elif state.mode == "texture":
+                output = _visualize(state.emoji_mask)
+            else:  # location+texture: the merged mask (app.py:265-282)
+                output = _visualize(mask_ops.merge_content_style_masks(
+                    state.loc_mask, state.emoji_mask, tcfg.emoji_blur_strength,
+                    tcfg.emoji_step_size))
 
     # ---- 3. pixel art (app.py:284-370) ----
     if req.pixel_art is not None:
-        pcfg = req.pixel_art
-        palette = None
-        if pcfg.use_palette and pcfg.palette_from_image:
-            if inputs.pixel_palette_image is None:
-                return None
-            from tbist_tpu_torch.ops import palette as palette_ops
+        with span("stage.pixel_art"):
+            pcfg = req.pixel_art
+            palette = None
+            if pcfg.use_palette and pcfg.palette_from_image:
+                if inputs.pixel_palette_image is None:
+                    return None
+                from tbist_tpu_torch.ops import palette as palette_ops
 
-            palette = palette_ops.palette_from_image(inputs.pixel_palette_image[0],
-                                                     pcfg.palette_num_colors)
-        output = _masked_apply(lambda img: pixel_art_fx.pixel_art(img, pcfg, palette=palette),
-                               original, output, state, req)
+                palette = palette_ops.palette_from_image(inputs.pixel_palette_image[0],
+                                                         pcfg.palette_num_colors)
+            output = _masked_apply(
+                lambda img: pixel_art_fx.pixel_art(img, pcfg, palette=palette),
+                original, output, state, req)
 
     # ---- 4. style transfer (app.py:372-470) ----
     if req.style_transfer:
@@ -279,11 +283,12 @@ def _apply_stages(
 
     # ---- 6. color palette transfer (app.py:592-658) ----
     if req.color_palette:
-        if inputs.color_palette_image is None:
-            return None
-        output = _masked_apply(
-            lambda img: basic.color_palette_transfer(img, inputs.color_palette_image),
-            original, output, state, req)
+        with span("stage.color_palette"):
+            if inputs.color_palette_image is None:
+                return None
+            output = _masked_apply(
+                lambda img: basic.color_palette_transfer(img, inputs.color_palette_image),
+                original, output, state, req)
 
     # ---- 7. depth-based style transfer (app.py:660-735) ----
     if req.depth is not None:

@@ -38,6 +38,7 @@ import torch.nn.functional as F
 
 from tbist_tpu_torch.ops.resize import resize_bilinear
 from tbist_tpu_torch.utils.imageio import image_resize_bilinear, tree_to
+from tbist_tpu_torch.utils.logging import span
 from tbist_tpu_torch.utils.precision import full_f32
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -211,7 +212,7 @@ def predict_depth(params: Params, cfg: DAConfig, image: torch.Tensor) -> torch.T
     back to the image's size, both as ``jax.image.resize`` bilinear; the
     gradient flows through both. Convolutions and products run in full f32
     (TF32 off) for the forward; a backward runs under its caller's setting."""
-    with full_f32():
+    with full_f32(), span("depth.forward"):
         image = image.float()
         b, h, w, _ = image.shape
         size = cfg.input_size

@@ -30,6 +30,7 @@ from tbist_tpu_torch.optimize import lbfgs
 from tbist_tpu_torch.parallel import mesh as mesh_lib
 from tbist_tpu_torch.utils.config import VGG_MEAN, VGG_STD, GatysConfig
 from tbist_tpu_torch.utils.imageio import resolve_device, upload
+from tbist_tpu_torch.utils.logging import backward_span, span
 from tbist_tpu_torch.utils.precision import full_f32
 
 DepthFn = Callable[[torch.Tensor], torch.Tensor]
@@ -141,9 +142,18 @@ def _pixel_terms(cfg: GatysConfig, loss: torch.Tensor, imgs: torch.Tensor,
         diff = torch.square(target_grads - losses.gradient_images(losses.to_grayscale(imgs)))
         loss = loss + cfg.w_edge * ((_lane_mean(diff[..., 0]) + _lane_mean(diff[..., 1])) / 2.0)
     if target_depths is not None:
-        d = torch.stack([normalize_depth(depth_fn(imgs[i:i + 1])) for i in range(imgs.shape[0])])
+        d = torch.stack([normalize_depth(_traced_depth(depth_fn, imgs[i:i + 1]))
+                         for i in range(imgs.shape[0])])
         loss = loss + cfg.w_depth * _lane_mean(torch.square(d - target_depths))
     return loss
+
+
+def _traced_depth(depth_fn: DepthFn, img: torch.Tensor) -> torch.Tensor:
+    """``depth_fn(img)``, its backward under the span ``depth.backward``
+    while a profiler records."""
+    depth = depth_fn(img)
+    backward_span("depth.backward", depth, img)
+    return depth
 
 
 def sharded_features(cfg: GatysConfig, params, normed: torch.Tensor,
@@ -252,7 +262,7 @@ def stylize(
     mean, std = _vgg_stats(device)
     all_layers = tuple(dict.fromkeys(cfg.content_layers + cfg.style_layers))
 
-    with full_f32():
+    with full_f32(), span("loop"):
         # --- feature targets (reference run_style_transfer.py:78-80) ---
         with torch.no_grad():
             normed_content = losses.normalize(content, mean, std)
@@ -296,17 +306,20 @@ def stylize(
             nu = torch.zeros_like(img)
 
         for i in range(cfg.num_steps):
-            img = img.clamp(0.0, 1.0).requires_grad_(True)  # per-closure clamp
-            loss = lane_losses(cfg, params, img, content_feats, target_grad, targets,
-                               cfg.w_style, depth_fn, target_depth)[0]
-            (grad,) = torch.autograd.grad(loss, img)
-            img = img.detach()
-            hist[i] = loss.detach()
-            if cfg.optimizer == "lbfgs":
-                step_vec, state = lbfgs.update(grad, state, lr=cfg.learning_rate)
-                img = img + step_vec
-            else:
-                step_vec, mu, nu = adam_update(grad, mu, nu, i, cfg.adam_lr)
-                img = img + step_vec
+            with span("step"):
+                img = img.clamp(0.0, 1.0).requires_grad_(True)  # per-closure clamp
+                with span("step.forward"):
+                    loss = lane_losses(cfg, params, img, content_feats, target_grad, targets,
+                                       cfg.w_style, depth_fn, target_depth)[0]
+                with span("step.backward"):
+                    (grad,) = torch.autograd.grad(loss, img)
+                img = img.detach()
+                hist[i] = loss.detach()
+                with span("step.update"):
+                    if cfg.optimizer == "lbfgs":
+                        step_vec, state = lbfgs.update(grad, state, lr=cfg.learning_rate)
+                    else:
+                        step_vec, mu, nu = adam_update(grad, mu, nu, i, cfg.adam_lr)
+                    img = img + step_vec
 
     return img.clamp(0.0, 1.0), hist

@@ -34,6 +34,7 @@ from tbist_tpu_torch.optimize.gatys import DepthFn
 from tbist_tpu_torch.parallel import mesh as mesh_lib
 from tbist_tpu_torch.utils.config import VGG_MEAN, VGG_STD, GatysConfig
 from tbist_tpu_torch.utils.imageio import resolve_device
+from tbist_tpu_torch.utils.logging import span
 from tbist_tpu_torch.utils.precision import full_f32
 
 
@@ -136,23 +137,28 @@ def train_step(cfg: GatysConfig, vgg_params, state: BatchState, content_feats, t
     if depth_fn is None or cfg.w_depth <= 0:
         target_depths = None
     with full_f32():
-        if sharding is None:
-            values = gatys.lane_losses(cfg, gatys.params_on(vgg_params, imgs.device, dtype),
-                                       imgs, content_feats, target_grads, style_grams,
-                                       w_style, depth_fn, target_depths)
-        else:
-            values = gatys.lane_losses_sharded(cfg, vgg_params, imgs, content_feats, target_grads, style_grams,
-                                               w_style, sharding, depth_fn, target_depths)
-        (grads,) = torch.autograd.grad(values.sum(), imgs)
+        with span("step.forward"):
+            if sharding is None:
+                values = gatys.lane_losses(cfg, gatys.params_on(vgg_params, imgs.device, dtype),
+                                           imgs, content_feats, target_grads, style_grams,
+                                           w_style, depth_fn, target_depths)
+            else:
+                values = gatys.lane_losses_sharded(cfg, vgg_params, imgs, content_feats,
+                                                   target_grads, style_grams, w_style, sharding,
+                                                   depth_fn, target_depths)
+        with span("step.backward"):
+            (grads,) = torch.autograd.grad(values.sum(), imgs)
         imgs = imgs.detach()
-        if cfg.optimizer == "lbfgs":
-            step_vecs = lbfgs_lanes(grads, state.opt_state, cfg.learning_rate)
-            opt_state = state.opt_state
-        else:
-            step_vecs, mu, nu = gatys.adam_update(grads, *state.opt_state, state.step,
-                                                  cfg.adam_lr)
-            opt_state = (mu, nu)
-    return BatchState(imgs + step_vecs, opt_state, state.step + 1), values.detach()
+        with span("step.update"):
+            if cfg.optimizer == "lbfgs":
+                step_vecs = lbfgs_lanes(grads, state.opt_state, cfg.learning_rate)
+                opt_state = state.opt_state
+            else:
+                step_vecs, mu, nu = gatys.adam_update(grads, *state.opt_state, state.step,
+                                                      cfg.adam_lr)
+                opt_state = (mu, nu)
+            imgs = imgs + step_vecs
+    return BatchState(imgs, opt_state, state.step + 1), values.detach()
 
 
 def run(cfg: GatysConfig, vgg_params, frames: torch.Tensor, styles: Sequence[torch.Tensor],
@@ -169,26 +175,28 @@ def run(cfg: GatysConfig, vgg_params, frames: torch.Tensor, styles: Sequence[tor
     their widths over each row's cards (sp, ``mesh.VGG_ALIGN`` columns a
     block); the results come back to ``device``, in lane order."""
     device = resolve_device(device)
-    if mesh is None:
-        return _run_lanes(cfg, vgg_params, frames, styles, w_style, return_history, depth_fn,
-                          device, None)
-    vgg_params = mesh_lib.replicas_of(vgg_params)  # one copy a card, kept
-    if w_style is not None:
-        w_style = torch.as_tensor(w_style, dtype=torch.float32)
-    parts = mesh_lib.split_lanes(frames.shape[0], mesh.shape[mesh_lib.DP_AXIS])
+    with span("loop"):
+        if mesh is None:
+            return _run_lanes(cfg, vgg_params, frames, styles, w_style, return_history,
+                              depth_fn, device, None)
+        vgg_params = mesh_lib.replicas_of(vgg_params)  # one copy a card, kept
+        if w_style is not None:
+            w_style = torch.as_tensor(w_style, dtype=torch.float32)
+        parts = mesh_lib.split_lanes(frames.shape[0], mesh.shape[mesh_lib.DP_AXIS])
 
-    def lanes(r, first):
-        a, b = parts[r]
-        sharding = mesh_lib.width_sharding(frames.shape[2], mesh.devices[r], mesh_lib.VGG_ALIGN)
-        return _run_lanes(cfg, vgg_params, frames[a:b], styles,
-                          None if w_style is None else w_style[a:b], return_history, depth_fn,
-                          first, sharding)
+        def lanes(r, first):
+            a, b = parts[r]
+            sharding = mesh_lib.width_sharding(frames.shape[2], mesh.devices[r],
+                                               mesh_lib.VGG_ALIGN)
+            return _run_lanes(cfg, vgg_params, frames[a:b], styles,
+                              None if w_style is None else w_style[a:b], return_history,
+                              depth_fn, first, sharding)
 
-    outs = mesh_lib.on_devices(lanes, [mesh.devices[r][0] for r in range(len(parts))])
-    if not return_history:
-        return torch.cat([o.to(device) for o in outs])
-    return (torch.cat([o.to(device) for o, _ in outs]),
-            torch.cat([h.to(device) for _, h in outs], dim=1))
+        outs = mesh_lib.on_devices(lanes, [mesh.devices[r][0] for r in range(len(parts))])
+        if not return_history:
+            return torch.cat([o.to(device) for o in outs])
+        return (torch.cat([o.to(device) for o, _ in outs]),
+                torch.cat([h.to(device) for _, h in outs], dim=1))
 
 
 def _run_lanes(cfg: GatysConfig, vgg_params, frames: torch.Tensor,
@@ -211,9 +219,10 @@ def _run_lanes(cfg: GatysConfig, vgg_params, frames: torch.Tensor,
         params = shard_params(params, sharding, _compute_dtype(cfg))
     hist = torch.zeros((cfg.num_steps, frames.shape[0]), device=device) if return_history else None
     for i in range(cfg.num_steps):
-        state, values = train_step(cfg, params, state, content_feats, target_grads,
-                                   style_grams, w_style, depth_fn, tdepths, sharding)
-        if hist is not None:
-            hist[i] = values
+        with span("step"):
+            state, values = train_step(cfg, params, state, content_feats, target_grads,
+                                       style_grams, w_style, depth_fn, tdepths, sharding)
+            if hist is not None:
+                hist[i] = values
     out = state.images.clamp(0.0, 1.0)
     return (out, hist) if return_history else out

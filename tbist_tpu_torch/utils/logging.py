@@ -1,15 +1,20 @@
-"""Structured logging & observability (a copy of ``tbist_tpu.utils.logging``).
+"""Structured logging & observability (after ``tbist_tpu.utils.logging``).
 
 Every effect returns timing/loss metadata and logs through the stdlib logger.
+``span`` marks the program's phases in the trace of a running
+``torch.profiler``, on the profiler's clock beside the kernels; with no
+profiler recording a span costs one flag check.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
-import time
-from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Dict, List
+
+import torch
+from torch.autograd import profiler as _profiler
 
 logger = logging.getLogger("tbist_tpu_torch")
 logger.propagate = False  # avoid double lines when the root logger has handlers
@@ -34,13 +39,36 @@ class RunMetrics:
     degraded: List[str] = field(default_factory=list)
 
 
-@contextmanager
-def timed(metrics: RunMetrics, name: str):
-    """Wall-clock bracket; callers must synchronize first for device work."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        metrics.timings_s[name] = metrics.timings_s.get(name, 0.0) + (
-            time.perf_counter() - t0
-        )
+SPAN_PREFIX = "tbist."
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A range ``tbist.<name>`` in the running profiler's trace, or one
+    shared no-op context manager when no profiler records. The profiler is
+    the recorder (``export_chrome_trace`` the exporter); the flag is checked
+    first because ``record_function`` costs microseconds even with no
+    profiler."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(SPAN_PREFIX + name)
+
+
+def backward_span(name: str, output: torch.Tensor, inp: torch.Tensor) -> None:
+    """``span(name)`` over a backward pass through a function: opened by a
+    hook on ``output``'s gradient, closed by a hook on ``inp``'s, both on
+    the autograd thread. Registered only while a profiler records and
+    ``output`` has a graph."""
+    if not _profiler._is_profiler_enabled or not output.requires_grad:
+        return
+    opened = []
+
+    def start(_grad):
+        opened.append(torch.profiler.record_function(SPAN_PREFIX + name).__enter__())
+
+    def end(_grad):
+        if opened:
+            opened.pop().__exit__(None, None, None)
+
+    output.register_hook(start)
+    inp.register_hook(end)

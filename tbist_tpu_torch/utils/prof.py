@@ -3,7 +3,8 @@
 ``trace`` wraps ``torch.profiler`` around a block (CPU and CUDA activity,
 optionally written as a Chrome trace). ``device_breakdown`` sums a trace's
 GPU kernel time by kind and measures how much of the traced window the
-device was busy.
+device was busy; ``program_ranges`` reads the program's own spans
+(``utils/logging.span``) in it.
 
 Run as a script on a machine with a CUDA card to profile a path: Gatys
 L-BFGS on boat.jpg x starry_night.jpg, SAM ViT-B ``predict_boxes`` at 1024²
@@ -28,33 +29,36 @@ text style's streaming lane::
     python -m tbist_tpu_torch.utils.prof --path depth --steps 10
     python -m tbist_tpu_torch.utils.prof --path video --steps 10
 
-It prints one JSON line: device time by kind and of the top kernels per
-step (per call for SAM and text-location), CUDA calls per step that can
-block the host, the device's busy share of the profiled window (the
-profiler's own host cost included), and the rate of an unprofiled run of
-the same length. For text-location it adds each layer's time per call
-(CUDA events around the Swin backbone, the fusion layers, the encoder's and
-the decoder's deformable attention, the whole DINO forward, SAM's encoder
-and its decode), BERT's once per prompt, and the host's thresholding; for
-pixel art, the k-means palette's, the quantizer's and Canny's time per call;
-for the text style, the MLP's, each Ghiasi layer's, the instance norms' and
-the read-back's, and the convolution kernels each Ghiasi layer launches with
-its operands' dtype; for depth, the forward spans of Depth Anything and of
-VGG-19 within the steps, each one's forward and input gradient alone, the
-host's own readings over repeated runs (wall and CPU ms a step,
-cudaMallocs, the card's SM clock and power; profiled, the busy share, the
-host's waits and the device's copies a step), and the batched lanes of
-MIP's batched plan (one lane and two: ms a step, and device time by kind
-for two). For video, the Gatys chunk's device time by kind a step (K1 and
-K3 beside VGG's convolutions), and the text lane's host ms a chunk in each
-stage (decode on the decode-ahead thread, upload and forward on the main
-thread, the read-back's wait and the encode on the read-back thread), its
-frames a second unprofiled, and device time by kind and busy share a chunk.
+It prints one JSON line: device time by kind and of the top kernels per step
+(per call for SAM and text-location), CUDA calls per step that can block the
+host, the device's busy share of the profiled window (the profiler's own
+host cost included), host and device ms a step under each of the program's
+spans (``tbist.*``: the loop, each step and its forward, backward and
+update, Depth Anything's forward and backward), and the rate of an
+unprofiled run of the same length. For text-location it adds each layer's
+time per call (CUDA events around the Swin backbone, the fusion layers, the
+encoder's and the decoder's deformable attention, the whole DINO forward,
+SAM's encoder and its decode), BERT's once per prompt, and the host's
+thresholding; for pixel art, the k-means palette's, the quantizer's and
+Canny's time per call; for the text style, the MLP's, each Ghiasi layer's,
+the instance norms' and the read-back's, and the convolution kernels each
+Ghiasi layer launches with its operands' dtype; for depth, Depth Anything's
+and VGG-19's forward and input gradient each alone, the host's own readings
+over repeated runs (wall and CPU ms a step, cudaMallocs, the card's SM clock
+and power; profiled, the busy share, the host's waits and the device's
+copies a step), and the batched lanes of MIP's batched plan (one lane and
+two: ms a step, and device time by kind for two). For video, the Gatys
+chunk's device time by kind a step (K1 and K3 beside VGG's convolutions),
+and the text lane's host ms a chunk in each stage (decode on the
+decode-ahead thread, upload and forward on the main thread, the read-back's
+wait and the encode on the read-back thread), its frames a second
+unprofiled, and device time by kind and busy share a chunk.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import contextlib
 import dataclasses
 import json
@@ -65,6 +69,8 @@ import time
 from typing import Dict, Optional
 
 import torch
+
+from tbist_tpu_torch.utils.logging import SPAN_PREFIX
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # kernel-name substrings -> kind, first match wins
@@ -114,6 +120,14 @@ def trace(out_path: Optional[str] = None):
         p.export_chrome_trace(out_path)
 
 
+def device_ops(p) -> list:
+    """The device's operations in profile ``p``: its CUDA events less the
+    device-side mirrors of host ranges (user annotations, such as the
+    program's spans), which run no work."""
+    return [e for e in p.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def _busy(spans):
     """(busy us, window us) of kernel spans: the union of the spans, and the
     window from the first start to the last end."""
@@ -133,7 +147,7 @@ def busy_by_device(p, match: str = "") -> Dict[int, Dict]:
     """Per card (``device_index``): its kernels' busy share of the window
     over all cards' kernels, and the count of kernels whose name holds
     ``match``."""
-    kernels = [e for e in p.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_ops(p)
     if not kernels:
         return {}
     _, window = _busy([(e.time_range.start, e.time_range.end) for e in kernels])
@@ -150,7 +164,7 @@ def busy_by_device(p, match: str = "") -> Dict[int, Dict]:
 def device_breakdown(p) -> Dict:
     """GPU kernel time by kind (ms), and the busy share of the window from
     the first kernel's start to the last kernel's end."""
-    kernels = [e for e in p.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_ops(p)
     if not kernels:
         return {"device_events": 0}
     by_kind: Dict[str, float] = {}
@@ -196,6 +210,33 @@ def host_clock():
     out["process_cpu_s"] = time.process_time() - c0
 
 
+def program_ranges(p, steps: int) -> Dict[str, Dict[str, float]]:
+    """Each of the program's ranges (``tbist.*``) in profile ``p``, a step:
+    its calls, host ms (its duration) and device ms (the kernels of the host
+    operations that began while it was open, on any thread: on a card the
+    backward runs on autograd's own thread, outside the tree of the range
+    that ``device_time_total`` sums)."""
+    cpu = [e for e in p.events() if e.device_type == torch.autograd.DeviceType.CPU]
+    launched = sorted((e.time_range.start, sum(k.duration for k in e.kernels
+                                               if not k.name.startswith(SPAN_PREFIX)))
+                      for e in cpu if e.kernels)
+    starts = [t for t, _ in launched]
+    total = [0.0]
+    for _, us in launched:
+        total.append(total[-1] + us)
+    out: Dict[str, Dict[str, float]] = {}
+    for e in cpu:
+        if not e.name.startswith(SPAN_PREFIX):
+            continue
+        i = bisect.bisect_left(starts, e.time_range.start)
+        j = bisect.bisect_right(starts, e.time_range.end)
+        row = out.setdefault(e.name, {"calls": 0.0, "host_ms": 0.0, "device_ms": 0.0})
+        row["calls"] += 1 / steps
+        row["host_ms"] += e.time_range.elapsed_us() / 1e3 / steps
+        row["device_ms"] += (total[j] - total[i]) / 1e3 / steps
+    return out
+
+
 def _profile(run, steps: int, trace_path: Optional[str]) -> Dict:
     """Time ``run()`` unprofiled, then profile it; ``run`` ends in a read-back."""
     t0 = time.perf_counter()
@@ -214,7 +255,8 @@ def _profile(run, steps: int, trace_path: Optional[str]) -> Dict:
         capture_output=True, text=True, timeout=60,
     ).stdout.strip()
     return {"steps": steps, "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-            "iters_per_sec_unprofiled": steps / plain_s, "per_step": per_step, **out}
+            "iters_per_sec_unprofiled": steps / plain_s, "per_step": per_step,
+            "ranges_ms_per_step": program_ranges(p, steps), **out}
 
 
 def _sam(steps: int, trace_path: Optional[str]) -> Dict:
@@ -238,7 +280,7 @@ def _sam(steps: int, trace_path: Optional[str]) -> Dict:
 
 
 @contextlib.contextmanager
-def _layer_spans(targets):
+def _layer_spans(targets):  # for paths whose modules open no program spans
     """Wrap module functions, (module, name, label or label(*args)), so that
     each call records CUDA events before and after it; yields {label: [(start,
     end), ...]}. A span is the stream's time from the call's first kernel to
@@ -434,7 +476,7 @@ def _depth(steps: int, trace_path: Optional[str]) -> Dict:
     dparams = da.init_params(torch.Generator().manual_seed(0), device="cuda")
     vgg = vgg_weights.get_params()
 
-    def estimator(img):  # through the module, so that a span can wrap it
+    def estimator(img):
         return da.predict_depth(dparams, da.SMALL, img)
 
     cfg = GatysConfig(num_steps=steps, w_depth=5e4)
@@ -446,12 +488,7 @@ def _depth(steps: int, trace_path: Optional[str]) -> Dict:
                       depth_fn=estimator)[1].cpu()
 
     host_runs = _host_runs(run, steps)  # first, while the process is new
-    with _layer_spans([(da, "predict_depth", "depth anything forward"),
-                       (vgg19, "extract_features", "vgg-19 forward")]) as spans:
-        gatys.stylize(content, [style], cfg, vgg, depth_fn=estimator)[1].cpu()
-    torch.cuda.synchronize()
-    layer_ms = {label: sum(s.elapsed_time(e) for s, e in pairs) / steps
-                for label, pairs in spans.items()}
+    layer_ms = {}
 
     # each part's forward and input gradient alone, as a step runs them
     params = gatys.params_on(vgg, content.device, torch.float32)
@@ -707,9 +744,7 @@ def _conv_kernels(call) -> Dict:
         with full_f32(), trace() as prof:
             conv(x, p, pad, stride, dtype)
             torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and kind_of(e.name).startswith("convolution")]
+        names = [e.name for e in device_ops(prof) if kind_of(e.name).startswith("convolution")]
         out[label] = {"operands": str(dtype).replace("torch.", ""), "input": list(x.shape),
                       "kernels": [n[:110] for n in names]}
     return out
