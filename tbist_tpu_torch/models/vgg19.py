@@ -11,6 +11,16 @@ view with channels-last strides; the weights are kept in
 ``torch.channels_last`` so cuDNN runs channels-last end to end and its
 output permuted back is contiguous NHWC again.
 
+Every conv is 3x3 with stride 1 and frozen weights, so its backward needs
+the input gradient alone, which is itself a forward convolution: the output
+gradient convolved with the weights flipped in both spatial axes, input and
+output channels swapped, at padding ``2 - p``. ``TrunkConv`` runs it so, on
+cuDNN's forward engines (cuDNN's heuristics pick FFT and legacy engines for
+its own f32 input gradient, at less than half the forward's rate on an
+H100); at the shapes where the chip measured cuDNN's own faster
+(``flips``), the conv is plain ``F.conv2d`` and autograd's own. The flipped weights are made once per weight tensor and dtype
+(``flipped_weight``) and kept while the weight lives.
+
 Every pool is ``relu_max_pool_2x2_even`` (kernel K3): the relu is applied
 inside it, and its backward splits ties evenly as JAX does.
 ``F.max_pool2d``'s backward, which sends the gradient to one argmax, is
@@ -26,10 +36,12 @@ the shard's own device.
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from tbist_tpu_torch.kernels.relu_pool import relu_max_pool_2x2_even
 from tbist_tpu_torch.parallel import mesh as mesh_lib
@@ -67,14 +79,102 @@ CONV_NAMES: Tuple[str, ...] = tuple(
 Params = Dict[str, Dict[str, torch.Tensor]]
 
 
+# weight -> {dtype: (weight._version when made, flipped weight)}
+_FLIPPED = WeakIdKeyDictionary()
+_COUNT_LOCK = threading.Lock()
+
+
+def flipped_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``weight`` (O, I, 3, 3) in ``dtype``, flipped in both spatial axes
+    with O and I swapped: (I, O, 3, 3) in channels-last. Made on the first
+    call for a weight tensor and dtype and kept while the weight lives (made
+    again if the weight was written in place), so that a loop's steps launch
+    no flip."""
+    per_dtype = _FLIPPED.get(weight)
+    if per_dtype is None:
+        per_dtype = _FLIPPED[weight] = {}
+    kept = per_dtype.get(dtype)
+    if kept is None or kept[0] != weight._version:
+        flipped = weight.detach().to(dtype).flip(2, 3).transpose(0, 1)
+        kept = (weight._version, flipped.contiguous(memory_format=torch.channels_last))
+        per_dtype[dtype] = kept
+    return kept[1]
+
+
+# Where the flipped forward loses to cuDNN's own input gradient: ms cuDNN's
+# own / flipped on an NVIDIA H100 80GB HBM3 at 700 W, f32, TF32 off, batch
+# 1 (tools/vgg_dgrad_ab.py):
+# - fewer than 64 input channels, so as few output channels in the flipped
+#   conv: conv1_1 (3 -> 64) at 512² 0.170 / 0.407, at 1024² 0.607 / 1.581;
+#   conv1_2 (64 -> 64) at 512² 0.925 / 0.579;
+# - fewer than 64² pixels: 512 -> 512 at 16², 24², 32² (conv5_1), 48² 0.079
+#   / 0.135, 0.111 / 0.214, 0.171 / 0.221, 0.345 / 0.487; at 64² (conv4_2)
+#   0.588 / 0.520. (At 96², off the 512px path, 1.277 / 1.540.)
+# Over all 13 convs the rule beats cuDNN's own alone at 8 video frames of
+# 480x864 (77.2 / 82.0 ms), in bf16 at 512² (0.612 / 0.739) and on quarter
+# width shards (2.24 / 5.02), though some convs there take the slower way:
+# at 8 frames cuDNN picks an FFT for conv3_1's flipped forward (17.4 /
+# 3.96 ms).
+_FLIP_MIN_IN_CHANNELS = 64
+_FLIP_MIN_PIXELS = 64 * 64
+
+
+def flips(x: torch.Tensor) -> bool:
+    """Whether the input gradient of a trunk conv of NCHW ``x`` takes the
+    flipped forward rather than cuDNN's own."""
+    b, cin, h, w = x.shape
+    return cin >= _FLIP_MIN_IN_CHANNELS and b * h * w >= _FLIP_MIN_PIXELS
+
+
+class TrunkConv(torch.autograd.Function):
+    """``F.conv2d(x, weight, bias, padding)`` for a 3x3 stride-1 conv whose
+    weight and bias take no gradient. The forward is ``F.conv2d`` itself;
+    the backward gives the input gradient alone, as the forward convolution
+    of the output gradient with ``flipped_weight`` at padding ``2 - p`` on
+    each axis."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, padding: Tuple[int, int]):
+        ctx.padding = padding
+        ctx.flipped = flipped_weight(weight, x.dtype)
+        return F.conv2d(x, weight.to(x.dtype), bias.to(x.dtype), padding=padding)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        ph, pw = ctx.padding
+        grad_in = F.conv2d(grad_out, ctx.flipped, padding=(2 - ph, 2 - pw))
+        return grad_in, None, None, None
+
+
+_DGRAD_COUNTS = {"flipped": 0, "native": 0}
+
+
+def dgrad_counts() -> Dict[str, int]:
+    """Trunk convs run since the last reset whose input takes a gradient and
+    whose weights take none, by the route of their input gradient:
+    ``flipped`` (``TrunkConv``) or ``native`` (autograd's own)."""
+    return dict(_DGRAD_COUNTS)
+
+
+def reset_dgrad_counts() -> None:
+    with _COUNT_LOCK:
+        for route in _DGRAD_COUNTS:
+            _DGRAD_COUNTS[route] = 0
+
+
 def _conv(x: torch.Tensor, p: Dict[str, torch.Tensor], compute_dtype,
-          padding=1) -> torch.Tensor:
-    out = F.conv2d(
-        x.to(compute_dtype).permute(0, 3, 1, 2),
-        p["weight"].to(compute_dtype),
-        p["bias"].to(compute_dtype),
-        padding=padding,
-    )
+          padding=(1, 1)) -> torch.Tensor:
+    x = x.to(compute_dtype).permute(0, 3, 1, 2)
+    w, b = p["weight"], p["bias"]
+    flip = False
+    if x.requires_grad and not (w.requires_grad or b.requires_grad):
+        flip = flips(x)
+        with _COUNT_LOCK:
+            _DGRAD_COUNTS["flipped" if flip else "native"] += 1
+    if flip:
+        out = TrunkConv.apply(x, w, b, padding)
+    else:  # no input gradient, cuDNN's own faster, or a weight gradient
+        out = F.conv2d(x, w.to(compute_dtype), b.to(compute_dtype), padding=padding)
     # No copy when the conv returned channels-last, as cuDNN does for
     # channels-last input; the kernels need contiguous NHWC either way.
     return out.permute(0, 2, 3, 1).contiguous()

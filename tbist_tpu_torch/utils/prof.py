@@ -35,7 +35,9 @@ host, the device's busy share of the profiled window (the profiler's own
 host cost included), host and device ms a step under each of the program's
 spans (``tbist.*``: the loop, each step and its forward, backward and
 update, Depth Anything's forward and backward), and the rate of an
-unprofiled run of the same length. For text-location it adds each layer's
+unprofiled run of the same length. For Gatys it adds each hand-written
+kernel's launches a step and VGG-19's input gradients a step by route
+(``vgg19.dgrad_counts``). For text-location it adds each layer's
 time per call (CUDA events around the Swin backbone, the fusion layers, the
 encoder's and the decoder's deformable attention, the whole DINO forward,
 SAM's encoder and its decode), BERT's once per prompt, and the host's
@@ -780,6 +782,8 @@ def _main() -> None:
         print(json.dumps(_video(args.steps, args.trace)))
         return
 
+    from tbist_tpu_torch import kernels
+    from tbist_tpu_torch.models import vgg19
     from tbist_tpu_torch.optimize import gatys
     from tbist_tpu_torch.utils.config import GatysConfig
     from tbist_tpu_torch.utils.imageio import load_image, to_device
@@ -795,8 +799,15 @@ def _main() -> None:
     def run():
         gatys.stylize(imgs[0], imgs[1:], cfg, params)[1].cpu()
 
-    print(json.dumps({"profile": "gatys lbfgs stylize", "size": list(imgs[0].shape[1:3]),
-                      **_profile(run, args.steps, args.trace)}))
+    out = _profile(run, args.steps, args.trace)
+    kernels.reset_launch_counts()
+    vgg19.reset_dgrad_counts()
+    run()
+    out["kernel_launches_per_step"] = {k: n / args.steps
+                                       for k, n in kernels.launch_counts().items()}
+    out["trunk_input_grads_per_step"] = {k: n / args.steps
+                                         for k, n in vgg19.dgrad_counts().items()}
+    print(json.dumps({"profile": "gatys lbfgs stylize", "size": list(imgs[0].shape[1:3]), **out}))
 
 
 if __name__ == "__main__":

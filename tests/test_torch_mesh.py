@@ -35,7 +35,7 @@ from tbist_tpu_torch.effects import depth as tdepth
 from tbist_tpu_torch.effects import style as tstyle
 from tbist_tpu_torch.effects import text_transfer as tt
 from tbist_tpu_torch.kernels import _build
-from tbist_tpu_torch.models import ghiasi
+from tbist_tpu_torch.models import ghiasi, vgg19
 from tbist_tpu_torch.optimize import gatys
 from tbist_tpu_torch.parallel import batched, mesh
 from tbist_tpu_torch.utils import config as tconfig
@@ -242,7 +242,8 @@ def test_launch_counts_under_threads():
 def test_sharded_loss_and_gradient_match_unsharded(width):
     """One Gatys loss-and-gradient evaluation with VGG-19's trunk over 4 (and
     4 unequal) width shards against the unsharded one: rtol 1e-5 on the
-    loss, 1e-4 relative L2 on the gradient."""
+    loss, 1e-4 relative L2 on the gradient; each shard's 13 trunk input
+    gradients, padding (1, 0), are ``TrunkConv``'s."""
     cfg = GatysConfig(w_style=1e3)
     content, style = torch.from_numpy(_rand(1, (1, 32, width, 3))), torch.from_numpy(
         _rand(2, (1, 32, 32, 3)))
@@ -253,6 +254,7 @@ def test_sharded_loss_and_gradient_match_unsharded(width):
     for sh in (None, sharding):
         _, cf, tg, sg = batched.init_batch(cfg, TPARAMS, content, [style], "cpu", sh)
         x = img.clone().requires_grad_(True)
+        vgg19.reset_dgrad_counts()
         if sh is None:
             loss = gatys.lane_losses(cfg, TPARAMS, x, cf, tg, sg, cfg.w_style)
         else:
@@ -260,6 +262,7 @@ def test_sharded_loss_and_gradient_match_unsharded(width):
             loss = gatys.lane_losses_sharded(cfg, batched.shard_params(TPARAMS, sh, torch.float32),
                                              x, cf, tg, sg, cfg.w_style, sh)
         (g,) = torch.autograd.grad(loss.sum(), x)
+        assert sum(vgg19.dgrad_counts().values()) == 13 * (1 if sh is None else len(sh.plan))
         vals.append(loss.detach())
         grads.append(g)
     torch.testing.assert_close(vals[1], vals[0], rtol=1e-5, atol=0)
