@@ -5,7 +5,7 @@ L-BFGS spreads a one-ulp difference between two f32 runs over a few steps
 (the port's own cuDNN dgrads are not bitwise repeatable), so a free run of
 the reference does not follow a 400-step run of the port. The reference
 therefore follows the program's trajectory, from the updates the program
-made, taken at the reading points of ``hooks.py``:
+made, taken at the reading points of ``requests/gatys.py``:
 
 - ``loss0_rel``: the program's first loss against the reference's at the
   content image (VGG-19, the targets the reference works out itself, the

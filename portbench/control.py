@@ -1,4 +1,4 @@
-"""The readings that the limits of ``check.py`` are set from, on the card
+"""The readings that the limits of ``check.py`` (Gatys cells) are set from, on the card
 at the cell's own size; the benchmark's runs do not run this.
 
     python3 portbench/control.py --workload <cell> --program-seeds 1,2,... --control-seeds 7,8,9
@@ -56,8 +56,8 @@ def control_reading(cell: str, seed: int, device: str = "cuda", overrides=None):
     import torch
 
     from portbench import check, weights
-    from portbench.generators import closed_loop
     from portbench.reference import gatys as ref
+    from portbench.requests import gatys as kind
 
     work = run.load("workloads", cell)
     config = run.load("configs", work["config"])
@@ -70,9 +70,9 @@ def control_reading(cell: str, seed: int, device: str = "cuda", overrides=None):
     vgg = weights.vgg19(seed_vgg, dev)
     da = config.get("depth_anything")
     da_params = weights.depth_anything(da, seed_da, dev) if da else None
-    images = closed_loop.load_images(params, run.ROOT)
-    pair = closed_loop.draw_pairs(params, seed_traffic)[0]
-    c, s = (run.to_tensor(images[n], dev) for n in pair)
+    images = kind.load_images(params, run.ROOT)
+    pair = kind.draw_pairs(params, seed_traffic)[0]
+    c, s = (kind.to_tensor(images[n], dev) for n in pair)
     cfg = dict(config["gatys"], w_depth=(config["request"].get("depth") or {}).get("w_depth", 0))
     steps, m = params["steps"], config["gatys"]["lbfgs_memory"]
     out = {"seed": seed, "pair": pair}
@@ -105,15 +105,18 @@ def f64_witness(cell: str, seed: int, record, device: str = "cuda", overrides=No
 
     from portbench import check, weights
     from portbench.reference import gatys as ref
+    from portbench.requests import gatys as kind
 
     work = run.load("workloads", cell)
     config = {**run.load("configs", work["config"]), **(overrides or {}).get("config", {})}
+    params = dict(work["params"], **(overrides or {}).get("params", {}))
     dev = torch.device(device)
     seed_vgg, seed_da, _ = run.sub_seeds(seed)
     da = config.get("depth_anything")
     cfg = dict(config["gatys"], w_depth=(config["request"].get("depth") or {}).get("w_depth", 0))
     cap = record["captures"]
-    images = [run.to_tensor(im, dev) for im in record["pair_images"]]
+    loaded = kind.load_images(params, run.ROOT)
+    images = [kind.to_tensor(loaded[n], dev) for n in record["item"]]
     out = {}
     for name, dt in (("f32", torch.float32), ("f64", torch.float64)):
         vgg = {k: {n: v.to(dt) for n, v in p.items()}

@@ -199,7 +199,7 @@ def lbfgs_step(g: torch.Tensor, st: Dict, lr: float = 1.0) -> torch.Tensor:
 def stylize(obj: Objective, content: torch.Tensor, steps: int, m: int, lr: float = 1.0,
             check_steps: int = 0):
     """A free run of ``steps`` from ``content``: the same outputs the
-    benchmark takes from the port's run (``hooks.Reader``), for the control."""
+    benchmark takes from the port's run (``requests.gatys.Reader``), for the control."""
     x = content.clone()
     st = init_state(tuple(x.shape), m, x.device)
     hist, cap = [], {"steps_u": []}

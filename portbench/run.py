@@ -4,20 +4,25 @@
 
 A run is a fresh process: set-up (imports, the card, the kernels that
 ``nvcc`` built under ``build/``, the seeded weights on the device, the
-images, one warm-up request of a few steps at the cell's shapes), then a
-window of whole requests through ``tbist_tpu_torch.api.apply_image``
-(``generators/``), then the check of every window request against the plain
-reference (``check.py``). The last line of standard output is one JSON
-object: ``correct``, ``attempted``, ``failed``, ``metrics``, ``device``
-(and ``breakdown`` with ``--trace 1``), and last ``checks``, each compared
-number with its limit, which also end standard error.
+inputs, a warm-up of the cell's shapes), then a window of whole requests
+through ``tbist_tpu_torch.api.apply_image`` (``generators/``), then the
+check of the window's requests against the plain reference. The last line
+of standard output is one JSON object: ``correct``, ``attempted``,
+``failed``, ``metrics``, ``device`` (and ``breakdown`` with ``--trace 1``),
+and last ``checks``, each compared number with its limit, which also end
+standard error.
 
 Everything is found by name: the cell in ``workloads/<cell>.json``, its
-configuration in ``configs/<config>.json``, its traffic generator in
-``generators/<generator>.py``, and each metric that ``BENCHMARK.json`` gives the
-cell in ``metrics/<metric>.py``. ``--trace 0`` reports the end-to-end
-metrics, ``--trace 1`` the per-layer ones, read from a profiled slice of
-whole steps in the first window request.
+configuration in ``configs/<config>.json``, its kind of request in
+``requests/<request>.py`` (the seeded models, the inputs and their order,
+the warm-up, the reading points in the port, the traced slice and the
+check), its traffic generator in ``generators/<generator>.py``, and each
+metric that ``BENCHMARK.json`` gives the cell in ``metrics/<metric>.py``.
+``--trace 0`` reports the end-to-end metrics, ``--trace 1`` the per-layer
+ones, read from a profiled slice of the window (whole steps of its first
+request for a Gatys cell, whole requests for a location cell). What is
+here is the same for every kind: the environment, the card, the window,
+the metrics, the device, the forbidden modules and the result line.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
+import importlib  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
@@ -98,47 +104,21 @@ def set_environment(chips: int) -> None:
 
 
 def sub_seeds(seed: int) -> List[int]:
-    """Seeds of the VGG-19 draw, the Depth Anything draw and the traffic."""
+    """Three seeds drawn from the run's: the request kind's two weight
+    draws (VGG-19 and Depth Anything; GroundingDINO and SAM) and the
+    traffic's."""
     import numpy as np
 
     return [int(s) for s in np.random.SeedSequence(seed % 2 ** 64).generate_state(3, np.uint64)]
 
 
-def build_request(config: Dict, steps: int):
-    from tbist_tpu_torch.api import DepthConfig, EffectRequest, GatysConfig
-
-    g = dict(config["gatys"])
-    g.update(num_steps=steps, content_layers=tuple(g["content_layers"]),
-             style_layers=tuple(g["style_layers"]))
-    req = config["request"]
-    depth = DepthConfig(**req["depth"]) if req.get("depth") else None
-    return EffectRequest(style_transfer=bool(req.get("style_transfer")), depth=depth,
-                         gatys=GatysConfig(**g))
-
-
-def depth_estimator(params, da: Dict):
-    """The depth model the registry takes, under a range the trace reads."""
-    import torch
-
-    from tbist_tpu_torch.models import depth_anything
-
-    cfg = depth_anything.DAConfig(**{k: tuple(v) if isinstance(v, list) else v
-                                     for k, v in da.items()})
-
-    def estimate(image):
-        with torch.profiler.record_function("portbench.depth_fwd"):
-            return depth_anything.predict_depth(params, cfg, image)
-
-    return estimate
-
-
-def to_tensor(img, device):
-    """The (1, H, W, 3) float image the port makes of a PIL image."""
-    import numpy as np
-    import torch
-
-    arr = np.asarray(img).astype(np.float32) / 255.0
-    return torch.from_numpy(arr)[None].to(device)
+def request_kind(work: Dict) -> types.ModuleType:
+    """``requests/<kind>.py`` for the workload's ``"request"``; a kind with
+    no file stops the run."""
+    kind = work["request"]
+    if not os.path.exists(os.path.join(HERE, "requests", f"{kind}.py")):
+        raise LookupError(f"no request kind {kind!r} (portbench/requests/{kind}.py)")
+    return importlib.import_module(f"portbench.requests.{kind}")
 
 
 def execute(argv: Optional[List[str]] = None, device: Optional[str] = None,
@@ -147,9 +127,9 @@ def execute(argv: Optional[List[str]] = None, device: Optional[str] = None,
     """One run: (exit code, the result line's object or None, the lines
     for standard error). ``device`` and ``overrides`` (``{"config": {...},
     "params": {...}}`` merged into the files') are for the CPU tests and
-    ``control.py``, which drive a run without a card or several runs in
-    one process; ``keep`` receives the window's requests (``records``) and
-    every number the check worked out (``numbers``)."""
+    the control scripts, which drive a run without a card or several runs
+    in one process; ``keep`` receives the window's requests (``records``)
+    and every number the check worked out (``numbers``)."""
     args = parse_args(argv)
     work = load("workloads", args.workload)
     config = load("configs", work["config"])
@@ -171,27 +151,17 @@ def execute(argv: Optional[List[str]] = None, device: Optional[str] = None,
             return 2, None, []
         device = "cuda"
     cards = chips if on_card else 1
+    try:
+        kind = request_kind(work)
+    except LookupError as exc:
+        print(f"portbench: {exc}", file=sys.stderr)
+        return 5, None, []
 
-    from portbench import check, hooks, tracing, weights
-    from portbench.reference import gatys as ref
+    from portbench import check, tracing
     from portbench.work import peaks as peaks_lib
-    from tbist_tpu_torch import api
 
     dev = torch.device(device)
-    seed_vgg, seed_da, seed_traffic = sub_seeds(args.seed)
-    vgg = weights.vgg19(seed_vgg, dev)
-    da, da_params, estimator = config.get("depth_anything"), None, None
-    if da:
-        da_params = weights.depth_anything(da, seed_da, dev)
-        estimator = depth_estimator(da_params, da)
-    registry = api.ModelRegistry(device=dev, vgg_params=vgg, depth_estimator=estimator)
-    timing_key = params["timing_key"]
-
-    def send(content, style, steps):
-        m = api.RunMetrics()
-        out = api.apply_image(content, build_request(config, steps), style_image=style,
-                              registry=registry, metrics=m, device=dev)
-        return out, {"program_s": m.timings_s.get(timing_key), "hist": list(m.loss_history)}
+    seeds = sub_seeds(args.seed)
 
     def sync():
         if on_card:
@@ -202,15 +172,14 @@ def execute(argv: Optional[List[str]] = None, device: Optional[str] = None,
     sliced = tracing.Slice(cards) if trace else None
     if trace and on_card:
         tracing.Slice.warm()
-    reader = hooks.Reader(params["steps"], tuple(params["trace_steps"]) if trace else None,
-                          sliced.toggle if trace else None, params["check_steps"])
+    session = kind.Session(config, params, seeds[:2], dev, sliced.toggle if trace else None,
+                           trace)
     generator = module("generators", work["generator"])
-    with hooks.installed(reader):
+    with session.installed():
         if on_card:
             for d in range(cards):
                 torch.cuda.reset_peak_memory_stats(d)
-        result = generator.run(params, seed_traffic, args.seconds, ROOT, send, reader, sync,
-                               trace)
+        result = generator.run(params, seeds[2], args.seconds, ROOT, session, sync, trace)
     sync()
     setup_s = result["setup_end"] - T_START
     peak = max((torch.cuda.max_memory_allocated(d) for d in range(cards)), default=0) \
@@ -219,11 +188,10 @@ def execute(argv: Optional[List[str]] = None, device: Optional[str] = None,
     if keep is not None:
         keep["records"] = records
     failed = sum(r["error"] is not None or r["out"] is None for r in records)
-    bypassed = sorted({p for r in records if r["error"] is None and r["out"] is not None
-                       for p in r["captures"]["problems"]})
+    bypassed = session.problems(records)
     if bypassed:
-        print("portbench: reading points bypassed, the check cannot run (hooks.py): "
-              + "; ".join(bypassed), file=sys.stderr)
+        print("portbench: reading points bypassed, the check cannot run "
+              f"(requests/{work['request']}.py): " + "; ".join(bypassed), file=sys.stderr)
         return 4, None, []
 
     name = torch.cuda.get_device_name(0) if on_card else "cpu"
@@ -231,8 +199,7 @@ def execute(argv: Optional[List[str]] = None, device: Optional[str] = None,
     ctx = types.SimpleNamespace(
         setup_s=setup_s, window_s=result["window_s"], records=records,
         completed=len(records) - failed, cards=cards, config=config, params=params,
-        peaks=peaks, trace=sliced.reduce(params["trace_steps"][1] - params["trace_steps"][0])
-        if trace else None)
+        peaks=peaks, trace=sliced.reduce(session.trace_units()) if trace else None)
     metrics, lines = {}, []
     for m in cell_metrics(args.workload, trace):
         value = module("metrics", m["name"]).read(ctx)
@@ -251,31 +218,19 @@ def execute(argv: Optional[List[str]] = None, device: Optional[str] = None,
         dev_info["window_s"] = b["window_us"] / 1e6
         for d, us in b["per_card_us"].items():
             lines.append(f"card {d}: busy {us / 1e6:.6f} s of the traced "
-                         f"{b['window_us'] / 1e6:.6f} s ({ctx.trace.steps} steps)")
+                         f"{b['window_us'] / 1e6:.6f} s ({ctx.trace.steps} units)")
         out["breakdown"] = {
             "device_ops": [[n, us / 1e6] for n, us in tracing.top_ops(ctx.trace)],
             "idle_gaps": [[n, us / 1e6] for n, us in tracing.idle_gaps(ctx.trace)[:10]]}
 
-    # the check, once the window has closed and the peak has been read
-    del registry
-    rows = []
-    ref_cfg = dict(config["gatys"],
-                   w_depth=(config["request"].get("depth") or {}).get("w_depth", 0.0))
-    with ref.precision(tf32=False):
-        for r in records:
-            if r["out"] is None or r["error"] is not None:
-                continue
-            c, s = (to_tensor(im, dev) for im in r["pair_images"])
-            obj = ref.objective(ref_cfg, vgg, c, s, da_params, da)
-            cap = dict(r["captures"], hist=r["timings"]["hist"])
-            rows.append(check.request_numbers(obj, c, cap, r["out"],
-                                              config["gatys"]["learning_rate"],
-                                              config["gatys"]["lbfgs_memory"]))
-    numbers = check.worst(rows)
+    # the check, once the window has closed, the peak has been read and the
+    # program's state is freed
+    session.release()
+    numbers, checked = session.check(records)
     if keep is not None:
         keep["numbers"] = numbers
     limits = work["limits"]
-    out["correct"] = bool(failed == 0 and len(rows) == len(records)
+    out["correct"] = bool(failed == 0 and checked and checked == session.due(records)
                           and check.judge(numbers, limits))
     out["checks"] = {k: {"value": numbers.get(k), "limit": limits[k]} for k in limits}
     lines += [f"check {k}: {numbers.get(k)} (limit {limits[k]})" for k in limits]

@@ -11,6 +11,7 @@ import pytest
 
 from portbench import run
 from portbench.generators import closed_loop
+from portbench.requests import gatys as gatys_kind
 
 ROOT = run.ROOT
 BENCH = json.load(open(os.path.join(ROOT, "BENCHMARK.json")))
@@ -101,26 +102,26 @@ def test_every_metric_has_a_reader_and_a_cell():
 
 def test_pair_draw_is_seeded_and_fair():
     params = run.load("workloads", "gatys512")["params"]
-    a = closed_loop.draw_pairs(params, 7)
-    assert a == closed_loop.draw_pairs(params, 7)
-    b = closed_loop.draw_pairs(params, 8)
+    a = gatys_kind.draw_pairs(params, 7)
+    assert a == gatys_kind.draw_pairs(params, 7)
+    b = gatys_kind.draw_pairs(params, 8)
     assert a != b
     n = len(params["content"]) * len(params["style"])
     assert len(a) == params["requests"] and len(set(a)) == len(a)
     full = dict(params, requests=n)  # every seed: the same requests, another order
-    assert sorted(closed_loop.draw_pairs(full, 7)) == sorted(closed_loop.draw_pairs(full, 8))
-    big = closed_loop.draw_pairs(dict(params, requests=2 * n + 3), 7)
+    assert sorted(gatys_kind.draw_pairs(full, 7)) == sorted(gatys_kind.draw_pairs(full, 8))
+    big = gatys_kind.draw_pairs(dict(params, requests=2 * n + 3), 7)
     assert len(big) == 2 * n + 3 and sorted(big[:n]) == sorted(big[n:2 * n])
 
 
 def test_images_are_checked_and_squared():
     params = run.load("workloads", "gatys512")["params"]
-    images = closed_loop.load_images(dict(params, side=48), ROOT)
+    images = gatys_kind.load_images(dict(params, side=48), ROOT)
     assert len(images) == len(params["content"]) + len(params["style"])
     assert all(im.size == (48, 48) and im.mode == "RGB" for im in images.values())
     bad = dict(params, content={next(iter(params["content"])): "0" * 64}, style={})
     with pytest.raises(RuntimeError, match="not the image"):
-        closed_loop.load_images(bad, ROOT)
+        gatys_kind.load_images(bad, ROOT)
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -150,33 +151,72 @@ def test_tiny_run_and_last_line(cell, trace):
     json.dumps(out)
 
 
-def test_window_holds_whole_requests():
+def test_window_holds_whole_requests(monkeypatch):
     """The window runs from the first request to the return of the last one
-    started within ``seconds``; the warm-up request comes before it."""
+    started within ``seconds``; the warm-up request comes before it. A
+    Gatys run's warm-up asks for ``warmup_steps`` steps, each window
+    request for the workload's ``steps``."""
     import time
-
-    from portbench import hooks
 
     sent = []
 
-    def send(content, style, steps):
-        sent.append(steps)
-        time.sleep(0.05)
-        return "image", {"program_s": 0.05, "hist": []}
+    class Session:
+        reader = gatys_kind.Reader(14)
+
+        def load(self, root):
+            pass
+
+        def draw(self, seed):
+            return gatys_kind.draw_pairs(params, seed)
+
+        def warm_up(self, items):
+            sent.append("warm")
+
+        def send(self, item):
+            sent.append(item)
+            time.sleep(0.05)
+            return "image", {"program_s": 0.05, "hist": []}
 
     params = dict(run.load("workloads", "gatys512")["params"], side=8)
-    out = closed_loop.run(params, 5, 0.12, ROOT, send, hooks.Reader(params["steps"]),
-                          lambda: None, False)
+    out = closed_loop.run(params, 5, 0.12, ROOT, Session(), lambda: None, False)
     n = len(out["records"])
-    assert sent[0] == params["warmup_steps"] and sent[1:] == [params["steps"]] * n
+    assert sent[0] == "warm" and sent[1:] == [r["item"] for r in out["records"]]
     assert 2 <= n <= 3
     assert out["window_s"] >= sum(r["wall_s"] for r in out["records"])
+    asked = []
+    build = gatys_kind.build_request
+
+    def spy(config, steps):
+        asked.append(steps)
+        return build(config, steps)
+
+    monkeypatch.setattr(gatys_kind, "build_request", spy)
     keep = {}
     execute("gatys512", seconds=0.001, keep=keep)
+    small = tiny("gatys512")["params"]
+    assert asked == [small["warmup_steps"]] + [small["steps"]] * len(keep["records"])
     cap = keep["records"][0]["captures"]
     assert len(keep["records"]) == 1 and cap["steps"] == 14 and cap["problems"] == []
     assert len(cap["steps_u"]) == 13
     assert set(keep["numbers"]) == set(__import__("portbench.check").check.NUMBERS)
+
+
+def test_request_kinds_are_found_by_name(monkeypatch, capsys):
+    """A workload's ``request`` names its module under ``requests/``; a
+    kind with no module stops the run without a result."""
+    for cell in CELLS:
+        kind = run.request_kind(run.load("workloads", cell))
+        assert callable(kind.Session)
+    real = run.load
+
+    def unknown(kind, name):
+        out = real(kind, name)
+        return dict(out, request="no_such_kind") if kind == "workloads" else out
+
+    monkeypatch.setattr(run, "load", unknown)
+    rc, out, _ = execute("gatys512")
+    assert rc == 5 and out is None
+    assert "no request kind 'no_such_kind'" in capsys.readouterr().err
 
 
 def _modules_after(code):
@@ -253,3 +293,19 @@ def test_worst_request_and_nan():
     assert check.worst(rows)["a"] != check.worst(rows)["a"]  # NaN
     assert not check.judge(check.worst(rows), {"a": 1.0})
     assert check.worst([{"a": 1e-6}, {"a": 3e-6}]) == {"a": 3e-6}
+
+
+@pytest.mark.parametrize("cell", ["gatys", "depth"])
+def test_device_busy_reader(cell):
+    """The device's busy milliseconds a step: the union of the card's
+    operations over the traced steps; nothing without a trace."""
+    import types
+
+    from portbench.tracing import Trace
+
+    t = Trace(kernels=[("a", 0, 0.0, 1000.0), ("b", 0, 500.0, 3000.0)],
+              copies=[("Memcpy", 0, 5000.0, 6000.0)], host_ops=[], ranges_us={}, steps=2,
+              cards=1)
+    reader = run.module("metrics", f"device_busy_ms_per_step.{cell}")
+    assert reader.read(types.SimpleNamespace(trace=t)) == pytest.approx(2.0)
+    assert reader.read(types.SimpleNamespace(trace=None)) is None

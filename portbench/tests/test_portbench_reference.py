@@ -1,6 +1,7 @@
 """The plain reference against the port at tiny sizes on the CPU: VGG-19's
-features, the Gatys loss and its gradient, Depth Anything, and L-BFGS
-over enough steps that its buffer wraps."""
+features, the Gatys loss and its gradient, Depth Anything, L-BFGS over
+enough steps that its buffer wraps, GroundingDINO, and SAM's encoder and
+mask decoder."""
 
 import numpy as np
 import pytest
@@ -12,6 +13,7 @@ from portbench.reference import gatys as ref
 from portbench.reference import vgg19 as ref_vgg
 from portbench.tests.test_portbench_harness import TINY_DA
 from portbench import run
+from portbench.tests.test_portbench_location import published_decoder  # noqa: F401
 
 CFG = run.load("configs", "vgg19_gatys_512")["gatys"]
 
@@ -162,3 +164,90 @@ def test_pool_splits_ties_as_the_port():
     (h * up.permute(0, 3, 1, 2)).sum().backward()
     assert torch.allclose(a.grad, b.grad.permute(0, 2, 3, 1), atol=1e-6)
     assert int((a.grad.abs() > 0).sum()) > int((up.abs() > 0).sum())  # ties were split
+
+
+# ---------------------------------------------------------------------------
+# the location cell: GroundingDINO, SAM
+# ---------------------------------------------------------------------------
+
+
+def _location_models(seed=11):
+    from portbench.requests import text_location as loc
+    from portbench.tests.test_portbench_location import TINY
+
+    cfg = {**run.load("configs", "gdino_swint_sam_vitb_mask"), **TINY["config"]}
+    dino_p = weights.groundingdino(cfg["groundingdino"], seed, "cpu")
+    sam_p = weights.sam(cfg["sam"], seed + 1, "cpu")
+    return cfg, dino_p, sam_p, loc
+
+
+def _photo(h=40, w=56, seed=3):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.rand((h, w, 3), generator=g) * 255).to(torch.uint8)
+
+
+def test_groundingdino_matches_the_port():
+    """The reference detector (Swin-T, BERT, fusion, deformable attention,
+    two-stage selection, decoder) against the port's ``dino_sam`` dispatch
+    on the same seeded weights: the same top queries, and logits and boxes
+    to f32 rounding; the seeded draw keeps ``boxes_kept`` boxes."""
+    from portbench.reference import groundingdino as ref_dino
+    from tbist_tpu_torch.models import dino_sam
+
+    cfg, dino_p, _, loc = _location_models()
+    dino_cfg, swin_cfg, bert_cfg, _ = loc.port_configs(cfg)
+    g = cfg["groundingdino"]
+    vocab = loc.vocabulary(["dog", "boat"])
+    img = _photo()
+    det_hw = ref_dino.detection_size(40, 56, g["input_short_side"], g["input_max_side"])
+    with torch.no_grad():
+        ids, out = dino_sam._detect_dispatch(dino_p, img, "dog", vocab, cfg=dino_cfg,
+                                             swin_cfg=swin_cfg, bert_cfg=bert_cfg, det_hw=det_hw)
+        mine = ref_dino.detect(dino_p, img, det_hw, "dog", vocab, cfg=g, swin_cfg=g["swin"])
+    assert ids == mine["ids"] == [101, 2001, 1012, 102]
+    assert torch.equal(out["topk_index"][0], mine["topk"])
+    assert _rel(out["pred_logits"][0], mine["logits"]) < 1e-5
+    assert _rel(out["pred_boxes"][0], mine["boxes"]) < 1e-5
+    assert int(ref_dino.kept(mine["logits"]).sum()) == g["boxes_kept"]
+    assert torch.equal(ref_dino.kept(mine["logits"]), ref_dino.kept(out["pred_logits"][0]))
+
+
+def test_sam_encoder_matches_the_port():
+    """SAM's image encoder (windows, global attention with the decomposed
+    relative positions, neck) and its preprocessing against the port's."""
+    from portbench.reference import sam as ref_sam
+    from tbist_tpu_torch.models import sam
+
+    cfg, _, sam_p, loc = _location_models()
+    *_, sam_cfg = loc.port_configs(cfg)
+    img = _photo(50, 36)
+    with torch.no_grad():
+        emb, scale, nh, nw = sam.encode_uint8(sam_p, sam_cfg, img)
+        x, rscale, rnh, rnw = ref_sam.preprocess(img, cfg["sam"])
+        mine = ref_sam.encode(sam_p, x, cfg["sam"])
+    assert (scale, nh, nw) == (rscale, rnh, rnw)
+    assert _rel(emb.permute(0, 3, 1, 2), mine) < 1e-5
+
+
+@pytest.mark.parametrize("published", [False, True])
+def test_sam_decoder_against_the_port(request, published):
+    """The mask decoder on the same embedding and boxes: the port's departs
+    from the published one (its first two-way block keeps a residual, its
+    LayerNorms take eps 1e-6; PERF.md, Open questions) by far more than
+    rounding; with the published block in its place it agrees."""
+    from portbench.reference import sam as ref_sam
+    from tbist_tpu_torch.models import sam
+
+    if published:
+        request.getfixturevalue("published_decoder")
+    cfg, _, sam_p, loc = _location_models()
+    *_, sam_cfg = loc.port_configs(cfg)
+    emb = torch.randn((1, 4, 4, 16), generator=torch.Generator().manual_seed(2))
+    corners = torch.tensor([[0.1, 0.2, 0.6, 0.7], [0.3, 0.1, 0.9, 0.5]])
+    with torch.no_grad():
+        port = sam.decode_masks(sam_p, sam_cfg, emb, corners)
+        mine = ref_sam.decode(sam_p, emb.permute(0, 3, 1, 2), corners, cfg["sam"])
+    if published:
+        assert _rel(port, mine) < 1e-5
+    else:
+        assert _rel(port, mine) > 1e-2
