@@ -12,7 +12,9 @@ Capability parity with text/TextMaskExtractor.py:25-68:
 The chain keeps the JAX package's order (PARITY.md:18): the uint8 frame is
 uploaded once, DINO is queued, SAM's image encoder is queued behind it, and
 only then are DINO's logits read back. The host's thresholding and phrase
-decoding run while the card works.
+decoding run while the card works. In a profiler's trace the four phases
+show as the spans ``tbist.location.dino``, ``.sam_encode``, ``.collect``
+(where the host waits for DINO's logits) and ``.sam_decode``.
 
 It needs the official checkpoints (weights_cache/groundingdino_swint_ogc.pth
 or ``TBIST_DINO_PTH``, and SAM's) and a BERT vocab (weights_cache/
@@ -35,7 +37,7 @@ from tbist_tpu_torch.models import dino as dino_lib
 from tbist_tpu_torch.models import sam as sam_lib
 from tbist_tpu_torch.parallel import mesh as mesh_lib
 from tbist_tpu_torch.utils.imageio import image_resize_bilinear, resolve_device
-from tbist_tpu_torch.utils.logging import logger
+from tbist_tpu_torch.utils.logging import logger, span
 from tbist_tpu_torch.utils.precision import full_f32
 
 _CACHE_DIR = os.path.join(
@@ -415,16 +417,19 @@ def extract_masks_batch(dino_params, sam_params, frames: ImageLike, prompt: str,
     frames_dev = sam_lib._as_device_uint8(frames, _params_device(dino_params))
     b, h, w = frames_dev.shape[:3]
     cfg_kw.setdefault("det_hw", _detection_size(h, w, det_size, det_max))
-    ids, pending = _detect_dispatch_batch(dino_params, frames_dev, prompt, vocab, **cfg_kw)
-    embs, scale, nh, nw = sam_lib.encode_uint8_batch(sam_params, sam_cfg, frames_dev)
-    logits = torch.sigmoid(pending["pred_logits"]).cpu().numpy()  # (B, Q, T)
-    pboxes = pending["pred_boxes"].cpu().numpy()
-    inv = _inv_vocab(vocab)
-    per_frame = []
-    for i in range(b):
-        keep = logits[i].max(axis=1) > BOX_THRESHOLD
-        keep2, _ = filter_phrases(logits[i][keep], ids, inv)
-        per_frame.append(_boxes_to_xyxy(pboxes[i][keep][keep2], h, w))
+    with span("location.dino"):
+        ids, pending = _detect_dispatch_batch(dino_params, frames_dev, prompt, vocab, **cfg_kw)
+    with span("location.sam_encode"):
+        embs, scale, nh, nw = sam_lib.encode_uint8_batch(sam_params, sam_cfg, frames_dev)
+    with span("location.collect"):
+        logits = torch.sigmoid(pending["pred_logits"]).cpu().numpy()  # (B, Q, T)
+        pboxes = pending["pred_boxes"].cpu().numpy()
+        inv = _inv_vocab(vocab)
+        per_frame = []
+        for i in range(b):
+            keep = logits[i].max(axis=1) > BOX_THRESHOLD
+            keep2, _ = filter_phrases(logits[i][keep], ids, inv)
+            per_frame.append(_boxes_to_xyxy(pboxes[i][keep][keep2], h, w))
     nmax = max(bx.shape[0] for bx in per_frame)
     if nmax == 0:
         return torch.zeros((b, h, w), dtype=torch.bool, device=frames_dev.device)
@@ -434,8 +439,9 @@ def extract_masks_batch(dino_params, sam_params, frames: ImageLike, prompt: str,
     for i, bx in enumerate(per_frame):
         boxes[i, : bx.shape[0]] = bx
         valid[i, : bx.shape[0]] = True
-    return sam_lib.masks_from_embedding_batch(sam_params, sam_cfg, embs, scale, nh, nw, h, w,
-                                              boxes, valid)
+    with span("location.sam_decode"):
+        return sam_lib.masks_from_embedding_batch(sam_params, sam_cfg, embs, scale, nh, nw, h,
+                                                  w, boxes, valid)
 
 
 def extract_mask(dino_params, sam_params, image: ImageLike, prompt: str, sam_cfg=None,
@@ -459,13 +465,17 @@ def extract_mask(dino_params, sam_params, image: ImageLike, prompt: str, sam_cfg
     # detection resolution knob (TextEffectConfig.detection_size): defaults
     # reproduce the reference RandomResize([800], max 1333)
     cfg_kw.setdefault("det_hw", _detection_size(h, w, det_size, det_max))
-    ids, pending = _detect_dispatch(dino_params, img_dev, prompt, vocab, **cfg_kw)
-    emb, scale, nh, nw = sam_lib.encode_uint8(sam_params, sam_cfg, img_dev)
-    boxes, _ = _detect_collect(ids, pending, vocab)
+    with span("location.dino"):
+        ids, pending = _detect_dispatch(dino_params, img_dev, prompt, vocab, **cfg_kw)
+    with span("location.sam_encode"):
+        emb, scale, nh, nw = sam_lib.encode_uint8(sam_params, sam_cfg, img_dev)
+    with span("location.collect"):  # the host waits here for DINO's logits
+        boxes, _ = _detect_collect(ids, pending, vocab)
     if boxes.shape[0] == 0:
         return torch.zeros((h, w), dtype=torch.bool, device=img_dev.device)
-    return sam_lib.mask_union_from_embedding(sam_params, sam_cfg, emb, scale, nh, nw, h, w,
-                                             _boxes_to_xyxy(boxes, h, w))
+    with span("location.sam_decode"):
+        return sam_lib.mask_union_from_embedding(sam_params, sam_cfg, emb, scale, nh, nw, h, w,
+                                                 _boxes_to_xyxy(boxes, h, w))
 
 
 def _as_uint8_frame(image: ImageLike) -> ImageLike:

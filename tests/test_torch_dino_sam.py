@@ -55,7 +55,9 @@ JKW = dict(cfg=jdino.DinoConfig(**DINO_KW), swin_cfg=jswin.SwinConfig(**SWIN_KW)
            bert_cfg=jbert.BertConfig(**BERT_KW), det_hw=(64, 64))
 TKW = dict(cfg=tdino.DinoConfig(**DINO_KW), swin_cfg=tswin.SwinConfig(**SWIN_KW),
            bert_cfg=tbert.BertConfig(**BERT_KW), det_hw=(64, 64))
-JSAM, TSAM = jsam.SamConfig(**SAM_KW), tsam.SamConfig(**SAM_KW)
+# the port's SAM decoder in the JAX package's form, which these tests hold it
+# to (tests/test_torch_sam_published.py holds the published form)
+JSAM, TSAM = jsam.SamConfig(**SAM_KW), tsam.JaxDecoderConfig(**SAM_KW)
 # thresholded masks: at most this share of pixels may differ from the JAX
 # package's (a logit within float rounding of 0 can land on either side)
 MASK_TOL = 1e-3

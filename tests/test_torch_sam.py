@@ -16,7 +16,9 @@ from tbist_tpu_torch.weights import sam as wsam
 
 TINY = dict(img_size=64, patch=8, width=32, layers=2, heads=4, window=4, global_layers=(1,),
             embed_dim=32, decoder_heads=4, decoder_layers=2, mlp_dim=64)
-JCFG, TCFG = jsam.SamConfig(**TINY), tsam.SamConfig(**TINY)
+# the port's decoder in the JAX package's form, which these tests hold it to
+# (tests/test_torch_sam_published.py holds the published form)
+JCFG, TCFG = jsam.SamConfig(**TINY), tsam.JaxDecoderConfig(**TINY)
 # thresholded masks: at most this share of pixels may differ (a logit within
 # float rounding of 0 can land on either side)
 MASK_TOL = 1e-3
