@@ -103,6 +103,9 @@ Phases, each fatal:
 
 Phases 1-16 run with ``TBIST_DISABLE_MESH=1``: on a host of several cards
 they stay on one, as their numbers and launch counts assume. Every launch counter is zeroed just before each path and read just after.
+Where a one-card Gatys loop runs, K1's and K3's counts are the kernels a
+device trace of the run saw (``counting``): the loop replays its step as
+a captured CUDA graph, whose kernels no wrapper's launch count sees.
 It prints one JSON line per kernel, shape and dtype, then the card's
 ``nvidia-smi`` line, a ``{"kernels": [...]}`` summary, and last the
 ``{"ok": true, "device": ...}`` line. Without CUDA, or outside a checkout,
@@ -533,7 +536,7 @@ def run_main_path(size: int, steps: int, flags=(), out_name: str = "smoke_out.pn
     import torch
     from PIL import Image
 
-    from tbist_tpu_torch import cli, kernels
+    from tbist_tpu_torch import cli
     from tbist_tpu_torch.utils.logging import RunMetrics
 
     out_path = os.path.join(ROOT, "build", out_name)
@@ -545,9 +548,9 @@ def run_main_path(size: int, steps: int, flags=(), out_name: str = "smoke_out.pn
     metrics = RunMetrics()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    rc = cli.main(argv, metrics=metrics)
-    counts = kernels.launch_counts()
+    with counting() as counted:
+        rc = cli.main(argv, metrics=metrics)
+    counts, graphs = counted["launches"], counted["step_graph"]
     peak = torch.cuda.max_memory_allocated()
     if rc != 0:
         raise AssertionError(f"cli.main returned {rc}")
@@ -558,22 +561,67 @@ def run_main_path(size: int, steps: int, flags=(), out_name: str = "smoke_out.pn
                     "loss_last": float(hist[-1]),
                     "iters_per_sec": metrics.extra["iters_per_sec"],
                     "seconds": metrics.timings_s["gatys"], "max_memory_allocated": peak,
-                    "launches": counts, "degraded": metrics.degraded}))
+                    "launches": counts, "step_graph": graphs, "degraded": metrics.degraded}))
     if img.shape != (size, size, 3):
         raise AssertionError(f"output image {img.shape}, expected {(size, size, 3)}")
     if hist.shape != (steps,) or not np.isfinite(hist).all() or not hist[-1] < hist[0]:
         raise AssertionError("loss history is not finite and decreasing")
-    _expect_launches(counts, **gatys_launches(steps))
+    _expect_launches(counts, **gatys_launches(steps, captures=graphs["captures"]))
+    _expect_replays(graphs, steps)
     return counts, metrics, peak
 
 
-def gatys_launches(steps: int, calls: int = 1):
-    """K1 and K3 launches of ``calls`` ``stylize`` calls of ``steps`` steps
+@contextlib.contextmanager
+def counting(traced: bool = True):
+    """Counts over the block, in the dict it yields, filled when the block
+    ends: ``launches``, the port's kernels by wrapper name, and
+    ``step_graph``, the captures and replays of the Gatys step as a CUDA
+    graph (``gatys.stylize.captures``, ``.replays``). ``traced``: K1's, K2's
+    and K3's are the kernels the card ran, from a device trace of the block
+    (``kernels.traced_counts``), since a replayed graph runs them without a
+    call of their wrappers, whose counts are host launches; else (for paths
+    that capture nothing, or that run a profiler of their own) the wrappers'
+    counts. K4's is always its wrapper's count (no graph holds it)."""
+    import torch
+
+    from tbist_tpu_torch import kernels
+    from tbist_tpu_torch.optimize import gatys
+    from tbist_tpu_torch.utils import prof
+
+    def graphs():
+        return {"captures": gatys.stylize.captures, "replays": gatys.stylize.replays}
+
+    counted = {}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    before = graphs()
+    with (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) if traced
+          else contextlib.nullcontext()) as p:
+        yield counted
+        torch.cuda.synchronize()
+    counted["launches"] = kernels.launch_counts()
+    if traced:
+        counted["launches"].update(kernels.traced_counts(prof.device_kernel_names(p)))
+    counted["step_graph"] = {k: v - before[k] for k, v in graphs().items()}
+
+
+def _expect_replays(graphs, steps: int, captures=(0, 1)) -> None:
+    """Every step of a one-card loop on the card replayed its captured
+    graph; ``captures`` lists the captures the run may make."""
+    if graphs["replays"] != steps or graphs["captures"] not in captures:
+        raise AssertionError(f"step graph {graphs}, expected {steps} replays and "
+                             f"captures in {captures}")
+
+
+def gatys_launches(steps: int, calls: int = 1, captures: int = 0):
+    """K1 and K3 kernels of ``calls`` ``stylize`` calls of ``steps`` steps
     each: every call computes the style targets' Grams once, then each step
-    one Gram forward and backward per style layer and a K3 at every pool."""
-    n_style = len(STYLE_LAYERS)
-    return {"gram_fwd": calls * n_style * (steps + 1), "gram_bwd": calls * n_style * steps,
-            "relu_pool_bwd": calls * len(POOL_CHANNELS) * steps}
+    one Gram forward and backward per style layer and a K3 at every pool;
+    each of ``captures`` captures of the step as a CUDA graph runs one step
+    eagerly first (``gatys._capture``)."""
+    n_style, run = len(STYLE_LAYERS), calls * steps + captures
+    return {"gram_fwd": n_style * (calls + run), "gram_bwd": n_style * run,
+            "relu_pool_bwd": len(POOL_CHANNELS) * run}
 
 
 def _expect_launches(counts, **launches: int) -> None:
@@ -927,14 +975,14 @@ def run_text_location_path(device, smi: str, sam_params):
     req = EffectRequest(text=TextEffectConfig(location_prompt=TEXT_PROMPT), style_transfer=True,
                         gatys=GatysConfig(num_steps=STEPS))
     run = RunMetrics()
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    out = api.apply_image(boat, req, style_image=starry, registry=reg, metrics=run,
-                          device=device)
-    seconds = time.perf_counter() - t0
-    counts = kernels.launch_counts()
-    _expect_launches(counts, sam_attn=per_call, **gatys_launches(STEPS))
+    with counting() as counted:
+        t0 = time.perf_counter()
+        out = api.apply_image(boat, req, style_image=starry, registry=reg, metrics=run,
+                              device=device)
+        seconds = time.perf_counter() - t0
+    counts = counted["launches"]
+    _expect_launches(counts, sam_attn=per_call,
+                     **gatys_launches(STEPS, captures=counted["step_graph"]["captures"]))
     tally(counts)
     arr = np.asarray(out)
     log(json.dumps({"text_location_pipeline": f"apply_image, location mask + {STEPS} Gatys "
@@ -1082,13 +1130,12 @@ def run_effects_path(device, smi: str):
     half, segment = STEPS // 2, STEPS // 4
     for steps in (half, STEPS):
         run = RunMetrics()
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        rc = cli.main(["--image", boat, "--style", starry, "--style-transfer", "--resume-dir",
-                       resume_dir, "--steps", str(steps), "--segment-steps", str(segment),
-                       "--out", os.path.join(ROOT, "build", "smoke_resume.png"),
-                       "--device", "cuda"], metrics=run)
-        counts = kernels.launch_counts()
+        with counting() as counted:
+            rc = cli.main(["--image", boat, "--style", starry, "--style-transfer",
+                           "--resume-dir", resume_dir, "--steps", str(steps), "--segment-steps",
+                           str(segment), "--out", os.path.join(ROOT, "build", "smoke_resume.png"),
+                           "--device", "cuda"], metrics=run)
+        counts = counted["launches"]
         hist = np.asarray(run.loss_history)
         line = {"resume": f"cli --resume-dir --steps {steps} --segment-steps {segment}", "rc": rc,
                 **run.extra, "new_steps": len(hist), "seconds": run.timings_s["gatys"],
@@ -1102,7 +1149,8 @@ def run_effects_path(device, smi: str):
                 and line["latest_step"] == steps):
             raise AssertionError(f"resumed run: {line}")
         # each segment is a stylize call: it recomputes the style targets' Grams
-        _expect_launches(counts, **gatys_launches(segment, calls=2))
+        _expect_launches(counts, **gatys_launches(
+            segment, calls=2, captures=counted["step_graph"]["captures"]))
         for k, v in counts.items():
             total[k] += v
     metrics = {"effects": {k: {"ms": v["ms"], "peak_bytes_of_call": v["peak_bytes_of_call"],
@@ -1557,11 +1605,10 @@ def run_depth_path(device, smi: str, size: int = SIZE, steps: int = STEPS):
     run = RunMetrics()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    with host_clock() as host:
+    with counting() as counted, host_clock() as host:
         out = pipeline.apply_image(content, req, pipeline.EffectInputs(style_image=style), reg,
                                    run)
-    counts = kernels.launch_counts()
+    counts, graphs = counted["launches"], counted["step_graph"]
     peak = torch.cuda.max_memory_allocated()
     one = gatys_depth.stylize_with_depth(content, style, dataclasses.replace(
         req.gatys, num_steps=1, w_depth=dcfg.w_depth), est, vgg, device=device)
@@ -1574,12 +1621,13 @@ def run_depth_path(device, smi: str, size: int = SIZE, steps: int = STEPS):
             "loss_max": float(hist.max()), "loss_argmax": int(hist.argmax()),
             "depth_term_after_step_1": _depth_term(est, one, content, dcfg.w_depth),
             "depth_term_last": _depth_term(est, out, content, dcfg.w_depth),
-            "max_memory_allocated": peak, "launches": counts,
+            "max_memory_allocated": peak, "launches": counts, "step_graph": graphs,
             "host_cpu_ms_per_step": host["process_cpu_s"] / steps * 1e3,
             "host_wall_ms_per_step": host["wall_s"] / steps * 1e3, "card": smi}
     log(json.dumps(line))
     add(counts)
     _expect_launches(counts, **gatys_launches(steps))
+    _expect_replays(graphs, steps, captures=(0,))  # the warm-up captured
     # L-BFGS without a line search overshoots early on this objective (the
     # loss peaks at tens of times its start) and need not end below its
     # start within the steps, so progress is the best loss reached
@@ -1642,18 +1690,19 @@ def run_depth_path(device, smi: str, size: int = SIZE, steps: int = STEPS):
     mip, batched_steps = {}, steps // 4
     for batched_plan, n_full in ((False, steps), (True, batched_steps)):
         for n_steps in (2, n_full):
-            torch.cuda.synchronize()
-            kernels.reset_launch_counts()
-            t0 = time.perf_counter()
-            res = depth_fx.style_mip(content, style, 2, GatysConfig(num_steps=n_steps), est, vgg,
-                                     batched=batched_plan, device=device).cpu()
-            ms = (time.perf_counter() - t0) * 1e3
-            counts = kernels.launch_counts()
+            with counting() as counted:
+                t0 = time.perf_counter()
+                res = depth_fx.style_mip(content, style, 2, GatysConfig(num_steps=n_steps), est,
+                                         vgg, batched=batched_plan, device=device).cpu()
+                ms = (time.perf_counter() - t0) * 1e3
+            counts = counted["launches"]
             if n_steps == n_full:
                 add(counts)
                 # each layer's run computes the style Grams once; the batched
                 # plan runs both layers in one launch per Gram and pool
-                _expect_launches(counts, **gatys_launches(n_full, calls=1 if batched_plan else 2))
+                _expect_launches(counts, **gatys_launches(
+                    n_full, calls=1 if batched_plan else 2,
+                    captures=counted["step_graph"]["captures"]))
             mip[(batched_plan, n_steps)] = (res, ms, counts)
     metrics["mip_ms"] = mip[(False, steps)][1]
     metrics["mip_batched_ms"] = mip[(True, batched_steps)][1]
@@ -1721,17 +1770,17 @@ def run_depth_path(device, smi: str, size: int = SIZE, steps: int = STEPS):
             return np.asarray(api.apply_image(boat, req, style_image=starry, device=device))
 
         run = RunMetrics()
-        kernels.reset_launch_counts()
-        saved = torch.backends.cudnn.deterministic
-        torch.backends.cudnn.deterministic = True
-        try:
-            rc = cli.main(argv, metrics=run)
-            want = pipeline_png()
-        finally:
-            torch.backends.cudnn.deterministic = saved
-        png = np.asarray(Image.open(out_path))
-        repeat = [pipeline_png() for _ in range(2)]
-        add(kernels.launch_counts())
+        with counting() as counted:
+            saved = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = True
+            try:
+                rc = cli.main(argv, metrics=run)
+                want = pipeline_png()
+            finally:
+                torch.backends.cudnn.deterministic = saved
+            png = np.asarray(Image.open(out_path))
+            repeat = [pipeline_png() for _ in range(2)]
+        add(counted["launches"])
         cli_runs[mode] = {"rc": rc, "image": list(png.shape), "degraded": run.degraded,
                           "pixels_differing_from_pipeline": int((png != want).any(-1).sum()),
                           "default_cudnn_repeat_pixels_differing": int(
@@ -1815,17 +1864,21 @@ def run_video_path(device, smi: str, chain):
     total = {name: 0 for name in kernels.launch_counts()}
     metrics = {"card": smi}
 
-    def drive(fn, **launches):
+    def drive(fn, gatys=None, **launches):
         """``fn()``, with every count zeroed just before it and read just
-        after; returns (its result, seconds, counts, peak bytes)."""
+        after (``counting``, traced where ``gatys`` gives the (steps, calls)
+        of one-card Gatys loops, whose K1 and K3 kernels it expects);
+        returns (its result, seconds, counts, peak bytes)."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        counts = kernels.launch_counts()
+        with counting(traced=gatys is not None) as seen:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        counts = seen["launches"]
+        if gatys is not None:
+            launches.update(gatys_launches(*gatys, captures=seen["step_graph"]["captures"]))
         _expect_launches(counts, **launches)
         for k, v in counts.items():
             total[k] += v
@@ -1999,7 +2052,7 @@ def run_video_path(device, smi: str, chain):
     (path, run), seconds, counts, _ = drive(
         lambda: cli_video("mip", ["--depth", "mip", "--style", starry, "--steps",
                                   str(VIDEO_SHORT_STEPS)], 2),
-        **gatys_launches(VIDEO_SHORT_STEPS, calls=2 * 2))
+        gatys=(VIDEO_SHORT_STEPS, 2 * 2))
     decoded(path, 2)
     log(json.dumps({"video_mip": f"cli --depth mip, 2 frames, {VIDEO_SHORT_STEPS} steps",
                     "seconds": seconds, "launches": counts, "degraded": run.degraded}))
@@ -2153,15 +2206,18 @@ def run_serve_path(device, smi: str, chain):
     total = {name: 0 for name in kernels.launch_counts()}
     metrics = {"card": smi}
 
-    def request(url, path, body, **launches):
+    def request(url, path, body, gatys=None, **launches):
         """One HTTP request with every count zeroed just before it and read
-        just after; returns (status, reply, seconds)."""
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        status, reply = _http(url + path, body)
-        seconds = time.perf_counter() - t0
-        counts = kernels.launch_counts()
+        just after (``counting``, traced where ``gatys`` gives the steps of
+        a one-card Gatys loop, whose K1 and K3 kernels it expects); returns
+        (status, reply, seconds)."""
+        with counting(traced=gatys is not None) as seen:
+            t0 = time.perf_counter()
+            status, reply = _http(url + path, body)
+            seconds = time.perf_counter() - t0
+        counts = seen["launches"]
+        if gatys is not None:
+            launches.update(gatys_launches(gatys, captures=seen["step_graph"]["captures"]))
         _expect_launches(counts, **launches)
         for k, v in counts.items():
             total[k] += v
@@ -2183,7 +2239,7 @@ def run_serve_path(device, smi: str, chain):
         saved = torch.backends.cudnn.deterministic
         torch.backends.cudnn.deterministic = True
         try:
-            reply, seconds = request(url, "/v1/image", body, **gatys_launches(STEPS))
+            reply, seconds = request(url, "/v1/image", body, gatys=STEPS)
             want = api.apply_image(serve._decode_image(boat), request_from_dict(body["request"]),
                                    style_image=serve._decode_image(starry), device=device)
         finally:
@@ -2646,18 +2702,22 @@ def run_mesh_path(device, smi: str, chain):
     sp_mesh = mesh_lib.make_mesh(one, dp=1, sp=MESH_SP)
     dp_mesh = mesh_lib.make_mesh(one, dp=MESH_SP, sp=1)
 
-    def drive(fn, **launches):
+    def drive(fn, gatys=None, **launches):
         """``fn()`` with the counts zeroed just before it and read just
-        after (checked against ``launches`` when given); returns (its
-        result, seconds, counts, peak bytes)."""
+        after (``counting``, traced where ``gatys`` gives the steps of a
+        one-card Gatys loop, whose K1 and K3 kernels it expects), checked
+        against ``launches`` when given; returns (its result, seconds,
+        counts, peak bytes)."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        counts = kernels.launch_counts()
+        with counting(traced=gatys is not None) as seen:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        counts = seen["launches"]
+        if gatys is not None:
+            launches.update(gatys_launches(gatys, captures=seen["step_graph"]["captures"]))
         if launches:
             _expect_launches(counts, **launches)
         for k, v in counts.items():
@@ -2695,7 +2755,7 @@ def run_mesh_path(device, smi: str, chain):
             out, seconds, counts, peak = drive(
                 lambda: style_fx.style_transfer(content, [style], cfg, vgg, metrics=m,
                                                 device=device),
-                **(gatys_launches(MESH_STEPS) if msh is None
+                **({"gatys": MESH_STEPS} if msh is None
                    else sp_gatys_launches(MESH_STEPS, len(sharding.plan))))
         runs[name] = (out, np.asarray(m.loss_history), m.extra["iters_per_sec"], peak, counts)
     hist_rel = float(np.abs(runs["sp"][1] / runs["unsharded"][1] - 1).max())

@@ -79,26 +79,40 @@ CONV_NAMES: Tuple[str, ...] = tuple(
 Params = Dict[str, Dict[str, torch.Tensor]]
 
 
-# weight -> {dtype: (weight._version when made, flipped weight)}
-_FLIPPED = WeakIdKeyDictionary()
+# weight -> {(kind, dtype): (weight._version when made, derived tensor)}
+_DERIVED = WeakIdKeyDictionary()
 _COUNT_LOCK = threading.Lock()
+
+
+def _derived(weight: torch.Tensor, kind: str, dtype: torch.dtype, make) -> torch.Tensor:
+    """``make(weight)``, made on the first call for a weight tensor, kind
+    and dtype and kept while the weight lives (made again if the weight was
+    written in place)."""
+    per_kind = _DERIVED.get(weight)
+    if per_kind is None:
+        per_kind = _DERIVED[weight] = {}
+    kept = per_kind.get((kind, dtype))
+    if kept is None or kept[0] != weight._version:
+        kept = per_kind[(kind, dtype)] = (weight._version, make(weight))
+    return kept[1]
 
 
 def flipped_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``weight`` (O, I, 3, 3) in ``dtype``, flipped in both spatial axes
-    with O and I swapped: (I, O, 3, 3) in channels-last. Made on the first
-    call for a weight tensor and dtype and kept while the weight lives (made
-    again if the weight was written in place), so that a loop's steps launch
+    with O and I swapped: (I, O, 3, 3) in channels-last. Made once per
+    weight tensor and dtype (``_derived``), so that a loop's steps launch
     no flip."""
-    per_dtype = _FLIPPED.get(weight)
-    if per_dtype is None:
-        per_dtype = _FLIPPED[weight] = {}
-    kept = per_dtype.get(dtype)
-    if kept is None or kept[0] != weight._version:
-        flipped = weight.detach().to(dtype).flip(2, 3).transpose(0, 1)
-        kept = (weight._version, flipped.contiguous(memory_format=torch.channels_last))
-        per_dtype[dtype] = kept
-    return kept[1]
+    return _derived(weight, "flip", dtype, lambda w: w.detach().to(dtype).flip(2, 3)
+                    .transpose(0, 1).contiguous(memory_format=torch.channels_last))
+
+
+def cast_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``weight.to(dtype)``, made once per weight tensor and dtype
+    (``_derived``), so that every request of a bf16 trunk reads the same
+    tensors, as a captured Gatys step's key asks."""
+    if weight.dtype == dtype:
+        return weight
+    return _derived(weight, "cast", dtype, lambda w: w.to(dtype))
 
 
 # Where the flipped forward loses to cuDNN's own input gradient: ms cuDNN's

@@ -43,11 +43,23 @@ def gaussian_kernel_1d(ksize: int, sigma: float = 0.0) -> np.ndarray:
     return (k / k.sum()).astype(np.float32)
 
 
+def _reflect_index(n: int, pad: int, device) -> torch.Tensor:
+    """Reflect-101 indices of ``n`` entries padded by ``pad`` on each side,
+    as ``np.pad(..., mode="reflect")`` gives them (it keeps reflecting when
+    pad exceeds the size), computed on ``device``: no copy from the host for
+    the host to wait on, and nothing kept that a captured CUDA graph (the
+    Gatys step's, with the fallback depth) would read by address."""
+    i = torch.arange(-pad, n + pad, device=device).abs()
+    if n == 1:
+        return torch.zeros_like(i)
+    period = 2 * (n - 1)
+    i = i % period
+    return torch.where(i >= n, period - i, i)
+
+
 def _blur_axis(x: torch.Tensor, k: np.ndarray, axis: int) -> torch.Tensor:
     n, pad = x.shape[axis], len(k) // 2
-    # reflect-101 indices; np.pad keeps reflecting when pad exceeds the size
-    idx = torch.as_tensor(np.pad(np.arange(n), pad, mode="reflect"), device=x.device)
-    xp = torch.index_select(x, axis, idx)
+    xp = torch.index_select(x, axis, _reflect_index(n, pad, x.device))
     out = xp.narrow(axis, 0, n) * float(k[0])
     for i in range(1, len(k)):
         out = out + xp.narrow(axis, i, n) * float(k[i])

@@ -11,8 +11,10 @@ device).
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Optional, Tuple
+import threading
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,12 +46,38 @@ def _linear_weights(n_out: int, n_in: int, align_corners: bool):
     return lo, hi, (src - lo).astype(np.float32)
 
 
+# the list each thread's ``holding`` block appends to
+_HOLDERS = threading.local()
+
+
+@contextlib.contextmanager
+def holding(into: list) -> Iterator[list]:
+    """Within the block, append to ``into`` the tensors ``_linear_weights_on``
+    hands out in this thread, so that they live as long as ``into`` does
+    whatever the cache drops: a captured CUDA graph (the Gatys step's)
+    reads them by address."""
+    outer = getattr(_HOLDERS, "into", None)
+    _HOLDERS.into = into
+    try:
+        yield into
+    finally:
+        _HOLDERS.into = outer
+
+
 @functools.lru_cache(maxsize=64)
+def _linear_weights_cached(n_out: int, n_in: int, align_corners: bool, device: torch.device):
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in _linear_weights(n_out, n_in, align_corners))
+
+
 def _linear_weights_on(n_out: int, n_in: int, align_corners: bool, device: torch.device):
     """``_linear_weights`` as tensors on ``device``, kept: a copy from the
     host would make the host wait for the card on every call."""
-    return tuple(torch.as_tensor(a, device=device)
-                 for a in _linear_weights(n_out, n_in, align_corners))
+    weights = _linear_weights_cached(n_out, n_in, align_corners, device)
+    into = getattr(_HOLDERS, "into", None)
+    if into is not None:
+        into.append(weights)
+    return weights
 
 
 def resize_bilinear(

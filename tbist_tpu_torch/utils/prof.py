@@ -36,8 +36,9 @@ host cost included), host and device ms a step under each of the program's
 spans (``tbist.*``: the loop, each step and its forward, backward and
 update, Depth Anything's forward and backward), and the rate of an
 unprofiled run of the same length. For Gatys it adds each hand-written
-kernel's launches a step and VGG-19's input gradients a step by route
-(``vgg19.dgrad_counts``). For text-location it adds each layer's
+kernel's runs a step (from a device trace, since the loop replays its
+step as a CUDA graph) and VGG-19's input gradients a step by route
+(``vgg19.dgrad_counts``, picked on the host at the capture). For text-location it adds each layer's
 time per call (CUDA events around the Swin backbone, the fusion layers, the
 encoder's and the decoder's deformable attention, the whole DINO forward,
 SAM's encoder and its decode), BERT's once per prompt, and the host's
@@ -68,7 +69,7 @@ import os
 import subprocess
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -128,6 +129,14 @@ def device_ops(p) -> list:
     program's spans), which run no work."""
     return [e for e in p.events() if e.device_type == torch.autograd.DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)]
+
+
+def device_kernel_names(p) -> List[str]:
+    """The names of the device operations in profile ``p``, from the
+    profiler's raw records (a run of hundreds of thousands of kernels reads
+    in seconds, where ``p.events()`` builds an object for each)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [e.name() for e in p.profiler.kineto_results.events() if e.device_type() == cuda]
 
 
 def _busy(spans):
@@ -793,20 +802,24 @@ def _main() -> None:
             for p in ("data/content_imgs/boat.jpg", "data/style_imgs/starry_night.jpg")]
     params = vgg_weights.get_params()
     cfg = GatysConfig(num_steps=args.steps)
+    vgg19.reset_dgrad_counts()
     gatys.stylize(imgs[0], imgs[1:], GatysConfig(num_steps=3), params)  # warm-up
     torch.cuda.synchronize()
+    # the routes are picked on the host: by the warm-up's capture of the
+    # step (one eager step, then the capture), or by its 3 steps where it
+    # captured nothing
+    host_steps = 2 if gatys.stylize.captures else 3
+    out_routes = {k: n / host_steps for k, n in vgg19.dgrad_counts().items()}
 
     def run():
         gatys.stylize(imgs[0], imgs[1:], cfg, params)[1].cpu()
 
     out = _profile(run, args.steps, args.trace)
-    kernels.reset_launch_counts()
-    vgg19.reset_dgrad_counts()
-    run()
-    out["kernel_launches_per_step"] = {k: n / args.steps
-                                       for k, n in kernels.launch_counts().items()}
-    out["trunk_input_grads_per_step"] = {k: n / args.steps
-                                         for k, n in vgg19.dgrad_counts().items()}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as p:
+        run()
+    out["kernel_launches_per_step"] = {
+        k: n / args.steps for k, n in kernels.traced_counts(device_kernel_names(p)).items()}
+    out["trunk_input_grads_per_step"] = out_routes
     print(json.dumps({"profile": "gatys lbfgs stylize", "size": list(imgs[0].shape[1:3]), **out}))
 
 

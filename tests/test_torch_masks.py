@@ -72,6 +72,15 @@ def test_gaussian_blur_matches_jax(ksize, shape):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("n,pad", [(1, 3), (2, 5), (5, 2), (9, 15), (7, 40), (64, 47)])
+def test_reflect_index_is_numpys(n, pad):
+    """The blur's reflect-101 indices, made on the tensor's device, are
+    ``np.pad``'s, also where the pad exceeds the size."""
+    got = filters._reflect_index(n, pad, torch.device("cpu"))
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), np.pad(np.arange(n), pad, mode="reflect"))
+
+
 @pytest.mark.parametrize("ksize", [5, 9, 31])
 def test_blur_masks_match_jax_and_single(ksize):
     m = _mask(5, (3, 24, 30))
